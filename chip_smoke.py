@@ -19,11 +19,28 @@ drives the main path through the entry points a user calls, at the paper's
 4. node recovery: ``spmd_node_recovery`` of node 0 over 8 stripes of
    DRC(9,6,3) (4.5 GiB of payload), rotating relayers;
 5. checkpoint: ``CheckpointManager`` saves a ~256 MiB f32 + bf16 state with
-   DRC(9,6,3), one node file is deleted, and the load must repair it.
+   DRC(9,6,3), one node file is deleted, and the load must repair it;
+6. serve, on StarCoder2-3B at full width (30 layers, d 3072, 24 query heads
+   over 2 KV heads, head dim 128, d_ff 12288, vocab 49152) in bf16, with
+   weights from ``init_model`` and a seeded generator:
+   a. the flash-attention kernel against ``flash_attention_ref`` on the card
+      over the reference's sweep (f32 atol 3e-5, bf16 atol 3e-2) and at the
+      model's layer shape, each case also within 1e-2 relative Frobenius
+      error and 2^-7 of its row's scale per element; timed beside the plain
+      version and PyTorch's ``scaled_dot_product_attention`` (timed only,
+      never on the path);
+   b. prefill: ``make_prefill_step`` on 4 prompts of 4096 tokens and on 2
+      prompts of 1500 (a ragged length), the flash kernel once per layer,
+      each held against the same forward through the chunked plain path;
+   c. serve: ``ServeEngine`` prefills 8 prompts of 128 tokens and generates
+      32 tokens greedily, under ``obs.tracing``.
+   One prefill forward and four decode steps also run under
+   ``torch.profiler``, for their device time by kernel.
 
-The kernel's launches are counted over phases 2-5 only.  Any mismatch or
-exception exits non-zero.  The last three lines of standard output are the
-kernels JSON line, the card's name and power limit, and the result line.
+The GF kernel's launches are counted over phases 2-5 only, the flash
+kernel's over 6b-6c only.  Any mismatch or exception exits non-zero.  The
+last three lines of standard output are the kernels JSON line, the card's
+name and power limit, and the result line.
 """
 from __future__ import annotations
 
@@ -43,6 +60,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.code_base import drc_min_cross_rack_blocks  # noqa: E402
 from repro_torch.core.codes import make_code  # noqa: E402
 from repro_torch.core.gf_torch import gf_matmul_table  # noqa: E402
@@ -52,7 +70,10 @@ from repro_torch.dist.collectives import (  # noqa: E402
     spmd_repair,
 )
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
 from repro_torch.kernels.gf_matmul import gf_matmul_batched  # noqa: E402
+from repro_torch.models import backbone  # noqa: E402
+from repro_torch.serve import ServeEngine, make_prefill_step  # noqa: E402
 from repro_torch.train.checkpoint import CheckpointManager, make_encode_step  # noqa: E402
 
 SEED = 0
@@ -65,9 +86,34 @@ SHAPES = [
 ]
 RECOVERY_STRIPES = 8
 DEVICE = "cuda"
-# NVIDIA H100 SXM data sheet (dense): HBM rate and int8 tensor-core rate
+# NVIDIA H100 SXM data sheet (dense): HBM rate, int8 and bf16 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1.979e15
+BF16_FLOPS_PER_S = 989e12
+SERVE_ARCH = "starcoder2-3b"
+# tests/test_flash_attention.py SWEEP: b, sq, sk, h, kvh, d, causal
+FLASH_SWEEP = [
+    (1, 256, 256, 2, 2, 64, True), (2, 512, 512, 1, 1, 128, True),
+    (1, 256, 512, 2, 2, 64, False), (1, 256, 256, 4, 2, 64, True),
+    (2, 256, 256, 8, 2, 32, True), (1, 128, 384, 3, 1, 64, False),
+]
+FLASH_ATOL = {torch.float32: 3e-5, torch.bfloat16: 3e-2}
+# 6a also holds every case to a relative Frobenius error and, per element, to
+# 2^-7 of the row's own scale (see ``flash_errors``): at S 4096 a typical
+# |out| is about 0.03, as large as the absolute tolerance.
+FLASH_REL_FRO = 1e-2
+FLASH_REL_SCALE = 2.0**-7
+FLASH_SCALE_FLOOR = 1e-6
+PREFILL_BATCH, PREFILL_LEN = 4, 4096  # 4096: StarCoder2's sliding-window span
+# a prompt length that is no multiple of the kernel's 64-row tile (nor of 256)
+RAGGED_BATCH, RAGGED_LEN = 2, 1500
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
+# 6b: the flash forward's last-position logits against the chunked plain
+# path's.  Both round activations to bf16 after every product, in other
+# places (the kernel scales S in f32 after QK^T, the plain path scales q in
+# bf16 before it), and those 2^-8 relative differences compound over 30
+# layers: allow 5% of the largest logit.
+PREFILL_RTOL = 0.05
 
 
 def check(cond: bool, what: str) -> None:
@@ -300,6 +346,173 @@ def phase_checkpoint(gen: torch.Generator) -> dict:
             "cross_rack_blocks": report.cross_rack_blocks, "host_s": dt}
 
 
+def flash_bound(b: int, sq: int, sk: int, h: int, kvh: int, d: int, causal: bool,
+                itemsize: int) -> tuple[float, str]:
+    """Least time for one attention forward: q, k, v read once and o written
+    once, against 4·d FLOP per (row, visible column) pair at the bf16 rate."""
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    flops = 4 * b * h * d * pairs
+    moved = itemsize * (2 * b * sq * h * d + 2 * b * sk * kvh * d)
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def flash_errors(got, q, k, v, causal: bool) -> dict:
+    """The kernel's output against ``flash_attention_ref`` on the same inputs:
+    the max abs error against the plain version's output in q's dtype, and,
+    against its unrounded f32 output (the same arithmetic on the inputs cast
+    to f32), the relative Frobenius error and the max of |err| over the row's
+    own scale, ``attention(q, k, |v|)`` = sum_j p_j |v_j| / l.  Rounding P and
+    the output to bf16 moves an element by at most about 2^-8 of that scale
+    each (P's rounding error is at most 2^-8 * sum_j p_j |v_j| / l), at any
+    row length; f32 inputs stay far inside it."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ref = flash_attention_ref(qf, kf, vf, causal=causal)
+    scale = flash_attention_ref(qf, kf, vf.abs(), causal=causal)
+    got = got.float()
+    diff = (got - ref).abs()
+    return {"max_abs_err": float((got - ref.to(q.dtype).float()).abs().max()),
+            "rel_fro_err": float(diff.norm() / ref.norm()),
+            "max_err_over_scale": float((diff / (scale + FLASH_SCALE_FLOOR)).max())}
+
+
+def check_flash(errs: dict, atol: float, what: str) -> None:
+    check(errs["max_abs_err"] <= atol and errs["rel_fro_err"] <= FLASH_REL_FRO
+          and errs["max_err_over_scale"] <= FLASH_REL_SCALE, f"flash {what}: {errs}")
+
+
+def phase_flash(gen: torch.Generator, cfg, batch: int, seq: int) -> dict:
+    """6a: the kernel against its plain version, then timed at the layer shape."""
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+    errs = {}
+    for dtype, atol in FLASH_ATOL.items():
+        worst = {}
+        for b, sq, sk, h, kvh, d, causal in FLASH_SWEEP:
+            q, k, v = rand(b, sq, h, d, dtype=dtype), rand(b, sk, kvh, d, dtype=dtype), \
+                rand(b, sk, kvh, d, dtype=dtype)
+            got = flash_attention(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            e = flash_errors(got, q, k, v, causal)
+            check_flash(e, atol, f"{dtype} {(b, sq, sk, h, kvh, d, causal)}")
+            worst = {key: max(val, worst.get(key, 0.0)) for key, val in e.items()}
+        errs[str(dtype).replace("torch.", "")] = worst
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = rand(batch, seq, h, d, dtype=torch.bfloat16)
+    k = rand(batch, seq, kvh, d, dtype=torch.bfloat16)
+    v = rand(batch, seq, kvh, d, dtype=torch.bfloat16)
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    e = flash_errors(got, q, k, v, True)
+    check_flash(e, FLASH_ATOL[torch.bfloat16], "at the model shape")
+    del got
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), reps=20)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), reps=2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, D) views
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
+    b_ms, b_by = flash_bound(batch, seq, seq, h, kvh, d, True, 2)
+    return {"shape": [batch, seq, h, kvh, d], "dtype": "bfloat16", "causal": True,
+            **e, "errs_sweep": errs, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def profile_device(fn, steps: int) -> dict:
+    """Device time of ``steps`` calls of ``fn`` under ``torch.profiler``: the
+    kernels' summed time against the host clock of the window, the number of
+    kernels, and the five largest kernels by time.  Reports no device time
+    where the profiler saw none."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_name: dict[str, float] = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": busy_ms / steps, "kernels_per_step": n / steps,
+            "device_busy_share": busy_ms / wall_ms,
+            "top_ms_per_step": [[name[:80], ms / steps] for name, ms in top]}
+
+
+def phase_prefill(gen: torch.Generator, cfg, model, batch: int, seq: int, *,
+                  profile: bool = True) -> dict:
+    """6b: the full-sequence forward through the flash kernel, held against
+    the chunked plain path."""
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=DEVICE)
+    step = make_prefill_step(cfg, device=DEVICE)
+    before = flash_attention.launches
+    logits = step(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    per_forward = flash_attention.launches - before
+    if DEVICE == "cuda":
+        check(per_forward == cfg.n_layers,
+              f"prefill launched the flash kernel {per_forward} times, not {cfg.n_layers}")
+    check(logits.shape == (batch, cfg.padded_vocab), f"prefill logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits.float()).all()), "prefill logits are not finite")
+    ms = cuda_ms(lambda: step(model, {"tokens": tokens}), reps=2)
+    t = time.perf_counter()
+    plain = make_prefill_step(cfg, device=DEVICE, use_flash=False)(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    diff = float((logits.float() - plain.float()).abs().max())
+    scale = float(plain.float().abs().max())
+    top1 = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    check(diff <= PREFILL_RTOL * scale,
+          f"prefill logits differ from the plain path by {diff} (max |logit| {scale})")
+    del plain
+    out = {"batch": batch, "seq": seq, "flash_launches_per_forward": per_forward,
+           "ms": ms, "plain_path_ms": plain_ms, "max_abs_diff": diff,
+           "max_abs_logit": scale, "top1_agreement": top1}
+    if profile:
+        out["profile"] = profile_device(lambda: step(model, {"tokens": tokens}), steps=1)
+    return out
+
+
+def phase_serve(gen: torch.Generator, cfg, model, batch: int, prompt: int, new: int) -> dict:
+    """6c: the engine's prefill (decode steps over the prompt) and greedy
+    generation, with its spans and counters."""
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen, device=DEVICE)
+    eng = ServeEngine(cfg, model, batch=batch, kv_len=prompt + new + 8, device=DEVICE)
+    with obs.tracing("serve") as tr:
+        t = time.perf_counter()
+        last = eng.prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        t = time.perf_counter()
+        out = eng.generate(new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+    check(last.shape == (batch, cfg.padded_vocab) and bool(torch.isfinite(last).all()),
+          "serve prefill logits")
+    check(out.shape == (batch, new) and out.dtype == torch.int32, f"tokens {tuple(out.shape)}")
+    check(int(out.min()) >= 0 and int(out.max()) < cfg.vocab, "tokens outside the vocab")
+    check(eng.position == prompt + new, f"position {eng.position}")
+    got = {k: tr.counter_value(f"serve.tokens.{k}") for k in ("prefill", "decode")}
+    check(got == {"prefill": batch * prompt, "decode": batch * new}, f"counters {got}")
+    check(len(tr.spans_named("serve.prefill")) == 1 and len(tr.spans_named("serve.generate")) == 1,
+          "serve spans")
+    # the decode step alone, at the last position (the cache slot it writes is spare)
+    tok = out[:, -1:]
+    prof = profile_device(lambda: eng._step(model, eng.state, tok, eng.position), steps=4)
+    return {"batch": batch, "prompt": prompt, "new": new, "kv_len": eng.kv_len,
+            "position": eng.position, "counters": got,
+            "prefill_ms_per_step": prefill_s * 1e3 / prompt,
+            "decode_ms_per_step": gen_s * 1e3 / new, "decode_profile": prof}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -352,7 +565,30 @@ def main() -> int:
     print(f"[5 checkpoint] {json.dumps(ck)}")
     launches = gf_matmul_batched.launches
     check(launches > 0, "the main path launched the GF kernel no time")
-    print(f"[peak] {torch.cuda.max_memory_allocated()} bytes allocated")
+    print(f"[peak 1-5] {torch.cuda.max_memory_allocated()} bytes allocated")
+    torch.cuda.empty_cache()  # free the GF phases' cache before the model
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(SERVE_ARCH)
+    t = time.perf_counter()
+    model = backbone.init_model(cfg, generator=gen, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    fl = phase_flash(gen, cfg, PREFILL_BATCH, PREFILL_LEN)
+    print(f"[6a flash] {json.dumps(fl)}")
+    flash_attention.launches = 0  # count the serve path's launches only
+    t = time.perf_counter()
+    pre = phase_prefill(gen, cfg, model, PREFILL_BATCH, PREFILL_LEN)
+    print(f"[6b prefill] {json.dumps(pre)}")
+    rag = phase_prefill(gen, cfg, model, RAGGED_BATCH, RAGGED_LEN, profile=False)
+    print(f"[6b prefill ragged] {json.dumps(rag)}")
+    srv = phase_serve(gen, cfg, model, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW)
+    print(f"[6c serve] {json.dumps(srv)}")
+    flash_launches = flash_attention.launches
+    check(flash_launches > 0, "the serve path launched the flash kernel no time")
+    phases["serve"] = {"init_s": init_s, "host_s": time.perf_counter() - t}
+    print(f"[peak 6] {torch.cuda.max_memory_allocated()} bytes allocated; "
+          f"{sum(p.numel() for p in model.parameters())} parameters")
 
     head = k1["timings"][0]  # DRC(9,6,3) full-width parity encode
     kernels = {"kernels": [{
@@ -369,6 +605,22 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": None,
         "shape": head["shape"],
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:28",
+        "launches": flash_launches,
+        "max_abs_err": fl["max_abs_err"],
+        "rel_fro_err": fl["rel_fro_err"],
+        "max_err_over_scale": fl["max_err_over_scale"],
+        "errs_sweep": fl["errs_sweep"],
+        "ms": fl["ms"],
+        "plain_ms": fl["plain_ms"],
+        "bound_ms": fl["bound_ms"],
+        "bound_by": fl["bound_by"],
+        "library_ms": fl["library_ms"],
+        "shape": fl["shape"],
     }]}
     print(json.dumps({"phases_host_s": {k: v["host_s"] for k, v in phases.items()},
                       "build_s": build_s, "total_s": time.perf_counter() - t0}))

@@ -23,7 +23,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = {"gf_matmul": CSRC / "gf_matmul.cu"}
+SOURCES = {
+    "gf_matmul": CSRC / "gf_matmul.cu",
+    "flash_attention": CSRC / "flash_attention.cu",
+}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

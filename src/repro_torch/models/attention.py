@@ -1,0 +1,148 @@
+"""GQA attention with RoPE: full-sequence (flash or chunked), and decode.
+
+The PyTorch counterpart of ``repro.models.attention``.
+
+* Full-sequence attention (prefill) on a CUDA device takes the hand-written
+  flash kernel (``repro_torch.kernels.flash_attention``) at any length: the
+  kernel masks its own ragged edge, so the JAX package's gate (S and Sk
+  multiples of 256, a Pallas block constraint) is not copied.  On the CPU,
+  or with ``use_flash=False``, it runs ``_chunked_attention``, the streaming
+  softmax over KV chunks in plain PyTorch.
+* Decode consumes a KV cache laid out (batch, kv_len, kv_heads, head_dim).
+  The cache is updated in place (slice assignment at ``position``), where
+  JAX builds a new one with ``dynamic_update_slice``.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ref import NEG_INF, streaming_attention
+
+from .common import Dense, apply_rope, constrain, rope_angles
+from .config import ArchConfig
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _chunked_attention(q, k, v, *, causal: bool, chunk: int):
+    """Streaming-softmax grouped attention (GQA without repeating K/V).
+
+    q: (B, Sq, kvH, G, D); k/v: (B, Sk, kvH, D).  Walks Sk in equal chunks
+    (``ref.streaming_attention``); q is scaled in its own dtype, and P is
+    cast to v's dtype before the PV product, as in the reference.
+    """
+    d = q.shape[-1]
+    sk = k.shape[1]
+    n_chunks = max(1, sk // chunk)
+    if sk % n_chunks:  # the reference's reshape into equal chunks fails too
+        raise ValueError(f"key length {sk} does not split into {n_chunks} equal chunks")
+    q = q * (1.0 / math.sqrt(d))
+    out = streaming_attention(q, k, v, causal=causal, block=sk // n_chunks, p_dtype=v.dtype)
+    return out.to(q.dtype)  # (B, Sq, kvH, G, D)
+
+
+class Attention(nn.Module):
+    """Projections ``wq``, ``wk``, ``wv``, ``wo`` (bias when ``qkv_bias``)."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype, device) -> None:
+        super().__init__()
+        d, hd, bias = cfg.d_model, cfg.head_dim, cfg.qkv_bias
+        kw = dict(bias=bias, dtype=dtype, device=device)
+        self.wq = Dense(d, cfg.n_heads * hd, **kw)
+        self.wk = Dense(d, cfg.n_kv_heads * hd, **kw)
+        self.wv = Dense(d, cfg.n_kv_heads * hd, **kw)
+        self.wo = Dense(cfg.n_heads * hd, d, **kw)
+
+
+def attention(
+    p: Attention,
+    cfg: ArchConfig,
+    x: torch.Tensor,
+    *,
+    causal: bool = True,
+    chunk: int = 512,
+    use_flash: bool | None = None,
+) -> torch.Tensor:
+    """Full-sequence self-attention (prefill).  ``use_flash=None`` takes the
+    flash kernel where x lies on a CUDA device; ``False`` takes the chunked
+    plain path."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    groups = cfg.n_heads // cfg.n_kv_heads
+    q = _split_heads(p.wq(x), cfg.n_heads, hd)
+    k = _split_heads(p.wk(x), cfg.n_kv_heads, hd)
+    v = _split_heads(p.wv(x), cfg.n_kv_heads, hd)
+    positions = torch.arange(s, device=x.device)[None, :]
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    q = constrain(q, "batch", "seq", "heads", None)
+    if use_flash is None:
+        use_flash = q.device.type == "cuda"
+    if use_flash:
+        out = flash_attention(q, k, v, causal=causal)
+    else:
+        qg = q.reshape(b, s, cfg.n_kv_heads, groups, hd)
+        eff_chunk = min(chunk, k.shape[1])
+        out = _chunked_attention(qg, k, v, causal=causal, chunk=eff_chunk)
+    out = out.reshape(b, s, cfg.n_heads * hd)
+    return p.wo(out)
+
+
+# ------------------------------------------------------------------ decoding
+@dataclass
+class KVCacheSpec:
+    batch: int
+    kv_len: int
+    n_kv_heads: int
+    head_dim: int
+    dtype: torch.dtype
+
+    def zeros(self, layers: int, device) -> dict[str, torch.Tensor]:
+        """``k``/``v`` of shape (layers, batch, kv_len, kvH, hd): one buffer
+        per layer, since decode writes each in place."""
+        shape = (layers, self.batch, self.kv_len, self.n_kv_heads, self.head_dim)
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=device)}
+
+
+def decode_attention(
+    p: Attention,
+    cfg: ArchConfig,
+    x: torch.Tensor,
+    cache: dict[str, torch.Tensor],
+    position: int,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One-token decode: x (B, 1, D), cache k/v (B, L, kvH, hd).
+
+    The new key and value are written into ``cache`` in place at
+    ``position``; the same dict is returned.
+    """
+    b = x.shape[0]
+    hd = cfg.head_dim
+    groups = cfg.n_heads // cfg.n_kv_heads
+    q = _split_heads(p.wq(x), cfg.n_heads, hd)  # (B,1,H,hd)
+    k_new = _split_heads(p.wk(x), cfg.n_kv_heads, hd)
+    v_new = _split_heads(p.wv(x), cfg.n_kv_heads, hd)
+    pos = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
+    cos, sin = rope_angles(pos, hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k_new = apply_rope(k_new, cos, sin)
+    cache["k"][:, position:position + 1] = k_new
+    cache["v"][:, position:position + 1] = v_new
+    k, v = cache["k"], cache["v"]
+    qg = q.reshape(b, 1, cfg.n_kv_heads, groups, hd) / math.sqrt(hd)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    mask = torch.arange(k.shape[1], device=x.device) <= position
+    logits = torch.where(mask, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+    out = out.reshape(b, 1, cfg.n_heads * hd)
+    return p.wo(out), cache

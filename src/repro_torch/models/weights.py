@@ -1,0 +1,68 @@
+"""Carry the JAX package's parameters across into the port's ``Backbone``.
+
+``params_from_jax(cfg, np_tree)`` takes the reference's parameter tree with
+every leaf already a numpy array (``jax.tree.map(np.asarray, params)`` of
+``repro.models.backbone.init_model``) and returns a ``Backbone`` holding the
+same values.  The reference stacks the blocks on a leading layer axis
+(``scan_layers=True``); this splits it into ``blocks.{i}.*``.  A bf16 leaf
+(``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) is viewed as
+uint16 and reinterpreted as ``torch.bfloat16``: the bits are copied as they
+are, with no f32 round trip.  Only numpy is read here.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .backbone import Backbone
+from .config import ArchConfig
+
+
+def _flatten(tree, prefix: str = ""):
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from _flatten(sub, f"{prefix}{key}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            yield from _flatten(sub, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.array(a)  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def named_arrays(cfg: ArchConfig, np_tree: dict) -> dict:
+    """The tree's leaves under the port's parameter names."""
+    out = {}
+    for name, leaf in _flatten(np_tree):
+        if name.startswith("blocks.") and isinstance(np_tree["blocks"], dict):
+            rest = name[len("blocks."):]
+            for i in range(cfg.n_layers):
+                out[f"blocks.{i}.{rest}"] = leaf[i]
+        else:
+            out[name] = leaf
+    return out
+
+
+def params_from_jax(cfg: ArchConfig, np_tree: dict, *, device="cuda") -> Backbone:
+    """A ``Backbone`` on ``device`` whose parameters equal ``np_tree``'s."""
+    model = Backbone(cfg, device=device)
+    arrays = named_arrays(cfg, np_tree)
+    params = dict(model.named_parameters())
+    if arrays.keys() != params.keys():
+        missing = sorted(params.keys() - arrays.keys())
+        extra = sorted(arrays.keys() - params.keys())
+        raise ValueError(f"parameter names differ: missing {missing}, unexpected {extra}")
+    with torch.no_grad():
+        for name, param in params.items():
+            src = _to_tensor(arrays[name])
+            if src.shape != param.shape or src.dtype != param.dtype:
+                raise ValueError(f"{name}: got {src.dtype} {tuple(src.shape)}, "
+                                 f"want {param.dtype} {tuple(param.shape)}")
+            param.copy_(src)
+    return model

@@ -1,0 +1,65 @@
+"""Serving steps.
+
+* ``prefill_step`` — full-sequence forward over the prompt (through the
+  flash kernel on a CUDA device): returns next-token logits.
+* ``serve_step`` — one new token against the KV cache of
+  ``backbone.init_decode_state``, which it updates in place.
+
+The PyTorch counterpart of ``repro.serve.serve_step``.  Each step checks
+that the model lies on the step's device, moves the tokens there, and runs
+under ``torch.no_grad``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import backbone
+from repro_torch.models.config import ArchConfig
+
+
+def _on(model, device: torch.device) -> None:
+    got = model.embed.w.device
+    if got.type != device.type or (device.index is not None and got != device):
+        raise ValueError(f"the model lies on {got}, the step runs on {device}")
+
+
+def make_prefill_step(cfg: ArchConfig, chunk: int = 512, *, device="cuda",
+                      use_flash: bool | None = None):
+    """``prefill_step(model, batch) -> logits (B, padded_vocab)`` at the last
+    position.  ``use_flash=None`` takes the flash kernel on a CUDA device."""
+    device = torch.device(device)
+
+    @torch.no_grad()
+    def prefill_step(model, batch):
+        _on(model, device)
+        batch = {**batch, "tokens": torch.as_tensor(batch["tokens"], device=device)}
+        logits, _ = backbone.forward(model, cfg, batch, chunk=chunk, use_flash=use_flash)
+        return logits[:, -1, :]
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig, *, device="cuda"):
+    """``serve_step(model, state, tokens (B, 1), position) -> (logits (B, V),
+    state)``; the state's caches are written in place."""
+    device = torch.device(device)
+
+    @torch.no_grad()
+    def serve_step(model, state, tokens, position: int):
+        _on(model, device)
+        tokens = torch.as_tensor(tokens, device=device)
+        logits, state = backbone.decode_step(model, cfg, state, tokens, position)
+        return logits[:, -1, :], state
+
+    return serve_step
+
+
+def sample_token(generator: torch.Generator | None, logits: torch.Tensor,
+                 temperature: float = 0.0) -> torch.Tensor:
+    """Greedy at temperature 0 (first index of the max, as ``jnp.argmax``);
+    otherwise a draw from ``softmax(logits / temperature)`` with
+    ``generator``, which cannot reproduce ``jax.random.categorical``."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)

@@ -1,25 +1,30 @@
-"""Card-only tests of the port: the CUDA kernel and the paths it serves.
+"""Card-only tests of the port: the CUDA kernels and the paths they serve.
 
 These tests import neither ``jax`` nor ``repro``, so they run on a machine
-that has only PyTorch with CUDA.  Their reference is the port's plain table
-version and its numpy plan layer, which ``tests/test_torch_gf.py`` and
-``tests/test_torch_codes.py`` hold byte-equal to the JAX package.  Each test
+that has only PyTorch with CUDA.  Their reference is the port's plain versions
+(the GF table product, ``flash_attention_ref``) and its numpy plan layer,
+which ``tests/test_torch_{gf,codes,flash}.py`` hold to the JAX package.  Each test
 skips itself where no card is present; on the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
 import os
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import gf
 from repro_torch.core.codes import make_code
 from repro_torch.core.gf_torch import gf_matmul_table
 from repro_torch.dist import collectives
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.gf_matmul import gf_matmul_batched
+from repro_torch.models import backbone
+from repro_torch.serve import ServeEngine, make_prefill_step
 from repro_torch.train import checkpoint
 
 pytestmark = pytest.mark.gpu
@@ -97,3 +102,68 @@ def test_checkpoint_roundtrip_on_card(dev, tmp_path):
                  (got["b"], state["b"])]:
         assert a.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+# tests/test_flash_attention.py SWEEP: b, sq, sk, h, kvh, d, causal; plus ragged lengths
+FLASH_SWEEP = [
+    (1, 256, 256, 2, 2, 64, True), (2, 512, 512, 1, 1, 128, True),
+    (1, 256, 512, 2, 2, 64, False), (1, 256, 256, 4, 2, 64, True),
+    (2, 256, 256, 8, 2, 32, True), (1, 128, 384, 3, 1, 64, False),
+    (1, 100, 77, 4, 2, 128, True), (2, 77, 130, 6, 3, 32, False),
+]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 3e-5), (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal", FLASH_SWEEP)
+def test_flash_kernel_matches_plain_and_launches(dev, b, sq, sk, h, kvh, d, causal, dtype, atol):
+    g = torch.Generator(device=dev)
+    g.manual_seed(b * 100 + sq + h)
+    q = torch.randn((b, sq, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, sk, kvh, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, sk, kvh, d), generator=g, device=dev).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, sq, h, d)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert float((got.float() - want.float()).abs().max()) <= atol
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(dev):
+    q = torch.zeros((1, 64, 2, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 64, 2, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 64, 2, 64), device=dev)
+    with pytest.raises(ValueError):
+        flash_attention(q, q.cpu(), q.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, q.transpose(1, 3).contiguous().transpose(1, 3), q)
+
+
+def test_serve_engine_on_card(dev):
+    # head dim 32: the kernel takes 32, 64 and 128 (the smoke config has 16)
+    cfg = dataclasses.replace(configs.get_smoke("starcoder2_3b"), d_model=192)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    model = backbone.init_model(cfg, generator=g, device="cuda")
+    # 200 and 1500 are no multiple of 256 nor of the kernel's 64-row tile:
+    # every length takes the kernel, once per layer
+    for s in (256, 200, 1500):
+        toks = torch.randint(0, cfg.vocab, (2, s), generator=g, device=dev)
+        before = flash_attention.launches
+        logits = make_prefill_step(cfg, device="cuda")(model, {"tokens": toks})
+        assert flash_attention.launches == before + cfg.n_layers
+        plain = make_prefill_step(cfg, device="cuda", use_flash=False)(model, {"tokens": toks})
+        assert float((logits.float() - plain.float()).abs().max()) <= \
+            0.05 * float(plain.float().abs().max())
+    eng = ServeEngine(cfg, model, batch=2, kv_len=24, device="cuda")
+    eng.prefill(toks[:, :8])
+    out = eng.generate(4)
+    assert out.shape == (2, 4) and out.device.type == "cuda"
+    assert int(out.min()) >= 0 and int(out.max()) < cfg.padded_vocab and eng.position == 12
+

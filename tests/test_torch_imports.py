@@ -25,7 +25,9 @@ def _port_modules():
 def test_port_modules_are_found():
     names = _port_modules()
     for must in ("repro_torch.kernels.gf_matmul", "repro_torch.dist.collectives",
-                 "repro_torch.train.checkpoint", "repro_torch.core.codes.msr_clay"):
+                 "repro_torch.train.checkpoint", "repro_torch.core.codes.msr_clay",
+                 "repro_torch.kernels.flash_attention", "repro_torch.models.backbone",
+                 "repro_torch.serve.engine"):
         assert must in names
 
 

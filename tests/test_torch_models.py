@@ -1,0 +1,162 @@
+"""Port parity: the dense model family.
+
+The JAX package's ``init_model`` draws the weights; ``params_from_jax``
+carries them into the port, and both packages run the same tokens.  At f32
+the only differences are the order of sums, so the logits must agree at
+atol 1e-4 and rtol 1e-4, through the full-sequence forward (with one and
+with several KV chunks) and through the KV-cache decode.  The configuration
+registry copy must equal the reference field by field.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as rconfigs
+from repro.models import backbone as rbb
+
+from repro_torch import configs as tconfigs
+from repro_torch.models import backbone as tbb
+from repro_torch.models.weights import named_arrays, params_from_jax
+
+DENSE = ["starcoder2_3b", "starcoder2_7b", "minicpm_2b", "command_r_35b"]
+
+
+def _pair(arch, dtype="float32", seed=0):
+    cfg_r = dataclasses.replace(rconfigs.get_smoke(arch), param_dtype=dtype)
+    cfg_t = dataclasses.replace(tconfigs.get_smoke(arch), param_dtype=dtype)
+    params, _ = rbb.init_model(jax.random.key(seed), cfg_r)
+    tree = jax.tree.map(np.asarray, params)
+    return cfg_r, cfg_t, params, params_from_jax(cfg_t, tree, device="cpu")
+
+
+def _tokens(cfg, b, s, seed=1):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, size=(b, s), dtype=np.int32)
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+@pytest.mark.parametrize("arch", sorted(rconfigs.list_archs()))
+def test_config_registry_copy_equals_reference(arch):
+    for get in ("get_config", "get_smoke"):
+        want = getattr(rconfigs, get)(arch)
+        got = getattr(tconfigs, get)(arch)
+        assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.head_dim == want.head_dim and got.padded_vocab == want.padded_vocab
+        assert got.count_params() == want.count_params()
+    assert tconfigs.applicable_shapes(tconfigs.get_config(arch)) == \
+        rconfigs.applicable_shapes(rconfigs.get_config(arch))
+
+
+def test_registry_aliases_and_shapes_equal_reference():
+    assert tconfigs.list_archs() == rconfigs.list_archs()
+    assert tconfigs._ALIAS == rconfigs._ALIAS
+    from repro.models import config as rcfg
+    from repro_torch.models import config as tcfg
+    assert {k: dataclasses.asdict(v) for k, v in tcfg.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in rcfg.SHAPES.items()}
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_weights_carry_across_bit_exact(arch):
+    cfg_r, cfg_t, params, model = _pair(arch, "bfloat16")
+    arrays = named_arrays(cfg_t, jax.tree.map(np.asarray, params))
+    for name, p in model.named_parameters():
+        want = np.ascontiguousarray(arrays[name])
+        assert p.dtype == (torch.bfloat16 if want.dtype.name == "bfloat16" else torch.float32)
+        np.testing.assert_array_equal(p.view(torch.int16 if p.dtype == torch.bfloat16 else
+                                             torch.int32).numpy(),
+                                      want.view(np.int16 if p.dtype == torch.bfloat16 else
+                                                np.int32))
+
+
+@pytest.mark.parametrize("chunk", [512, 8], ids=["one_chunk", "four_chunks"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_logits_match_f32(arch, chunk):
+    cfg_r, cfg_t, params, model = _pair(arch)
+    toks = _tokens(cfg_r, 2, 32)
+    want, _ = rbb.forward(params, cfg_r, {"tokens": jnp.asarray(toks)}, chunk=chunk)
+    with torch.no_grad():
+        got, aux = tbb.forward(model, cfg_t, {"tokens": torch.from_numpy(toks)}, chunk=chunk)
+    assert got.shape == (2, 32, cfg_t.padded_vocab) and got.dtype == torch.float32
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_logits_match_f32(arch):
+    cfg_r, cfg_t, params, model = _pair(arch)
+    toks = _tokens(cfg_r, 2, 6, seed=3)
+    state_r, _ = rbb.init_decode_state(cfg_r, 2, 8)
+    state_t = tbb.init_decode_state(cfg_t, 2, 8, device="cpu")
+    for pos in range(6):
+        want, state_r = rbb.decode_step(params, cfg_r, state_r, jnp.asarray(toks[:, pos:pos + 1]), pos)
+        with torch.no_grad():
+            got, state_t = tbb.decode_step(model, cfg_t, state_t,
+                                           torch.from_numpy(toks[:, pos:pos + 1]), pos)
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=1e-4, rtol=1e-4)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(_f32(state_t["kv"][key]), _f32(state_r["kv"][key]),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_forward_in_port(arch):
+    _, cfg_t, _, model = _pair(arch)
+    toks = torch.from_numpy(_tokens(cfg_t, 2, 5, seed=4))
+    state = tbb.init_decode_state(cfg_t, 2, 5, device="cpu")
+    with torch.no_grad():
+        full, _ = tbb.forward(model, cfg_t, {"tokens": toks})
+        for pos in range(5):
+            step, state = tbb.decode_step(model, cfg_t, state, toks[:, pos:pos + 1], pos)
+            np.testing.assert_allclose(step[:, 0].numpy(), full[:, pos].numpy(),
+                                       atol=1e-4, rtol=1e-4)
+
+
+# bf16: both packages round activations to bf16 after every product, in
+# different places (XLA fuses, PyTorch does not), and the rounding differences
+# (2^-8 relative) compound over the two layers.  The logits must agree to 5%
+# of the largest logit (measured: under 0.9%).  At random init the top logits
+# lie within that rounding of each other, so the greedy token is only held to
+# agree at three positions in four (measured: 94-100%).
+@pytest.mark.parametrize("arch", DENSE)
+def test_forward_logits_match_bf16(arch):
+    cfg_r, cfg_t, params, model = _pair(arch, "bfloat16")
+    toks = _tokens(cfg_r, 2, 16)
+    want, _ = rbb.forward(params, cfg_r, {"tokens": jnp.asarray(toks)})
+    with torch.no_grad():
+        got, _ = tbb.forward(model, cfg_t, {"tokens": torch.from_numpy(toks)})
+    assert got.dtype == torch.bfloat16
+    got, want = _f32(got), _f32(want)
+    assert np.abs(got - want).max() <= 0.05 * np.abs(want).max()
+    assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.75
+
+
+def test_other_families_raise():
+    for arch in ("dbrx_132b", "xlstm_125m", "zamba2_1p2b", "internvl2_1b", "whisper_small"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tbb.init_model(tconfigs.get_smoke(arch), generator=torch.Generator(), device="cpu")
+
+
+def test_init_model_distributions():
+    cfg = tconfigs.get_smoke("starcoder2_3b")
+    g = torch.Generator()
+    g.manual_seed(0)
+    model = tbb.init_model(cfg, generator=g, device="cpu")
+    assert model.embed.w.dtype == torch.bfloat16 and model.ln_f.scale.dtype == torch.float32
+    wq = model.blocks[0].attn.wq.w.float()
+    assert wq.abs().max() <= 1 / np.sqrt(cfg.d_model)
+    assert float(model.blocks[0].attn.wq.b.abs().max()) == 0.0
+    assert abs(float(model.embed.w.float().std()) - 0.02) < 0.002
+    assert float(model.blocks[1].ln1.scale.min()) == 1.0
+    names = {n for n, _ in model.named_parameters()}
+    assert {"blocks.1.attn.wo.b", "blocks.0.mlp.down.w", "lm_head.w", "ln_f.bias"} <= names
+    assert not any(p.requires_grad for p in model.parameters())
