@@ -26,9 +26,12 @@ drives the main path through the entry points a user calls, at the paper's
    a. the flash-attention kernel against ``flash_attention_ref`` on the card
       over the reference's sweep (f32 atol 3e-5, bf16 atol 3e-2) and at the
       model's layer shape, each case also within 1e-2 relative Frobenius
-      error and 2^-7 of its row's scale per element; timed beside the plain
-      version and PyTorch's ``scaled_dot_product_attention`` (timed only,
-      never on the path);
+      error and 2^-7 of its row's scale per element.  At the layer shape
+      (4 x 4096) and at the ragged 2 x 1500 the kernel and PyTorch's
+      ``scaled_dot_product_attention`` (timed only, never on the path) are
+      timed in turns, kernel then SDPA, 5 rounds of 20 launches each: the
+      median, the min-max spread, the achieved TFLOP/s and the share of the
+      bound; the plain version is timed once;
    b. prefill: ``make_prefill_step`` on 4 prompts of 4096 tokens and on 2
       prompts of 1500 (a ragged length), the flash kernel once per layer,
       each held against the same forward through the chunked plain path;
@@ -37,10 +40,14 @@ drives the main path through the entry points a user calls, at the paper's
    One prefill forward and four decode steps also run under
    ``torch.profiler``, for their device time by kernel.
 
-The GF kernel's launches are counted over phases 2-5 only, the flash
-kernel's over 6b-6c only.  Any mismatch or exception exits non-zero.  The
-last three lines of standard output are the kernels JSON line, the card's
-name and power limit, and the result line.
+The build prints ptxas's report of every kernel (registers, spills) and the
+bf16 flash kernel's geometry (tiles, stages, dynamic shared memory, the
+registers ``setmaxnreg`` gives its producer and consumer warpgroups, and its
+TMA boxes), held equal to the wrapper's ``hopper_geometry``.  The
+GF kernel's launches are counted over phases 2-5 only, the flash kernel's
+over 6b-6c only.  Any mismatch or exception exits non-zero.  The last three
+lines of standard output are the kernels JSON line, the card's name and
+power limit, and the result line.
 """
 from __future__ import annotations
 
@@ -70,7 +77,12 @@ from repro_torch.dist.collectives import (  # noqa: E402
     spmd_repair,
 )
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_ref,
+    hopper_config,
+    hopper_geometry,
+)
 from repro_torch.kernels.gf_matmul import gf_matmul_batched  # noqa: E402
 from repro_torch.models import backbone  # noqa: E402
 from repro_torch.serve import ServeEngine, make_prefill_step  # noqa: E402
@@ -114,6 +126,8 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
 # bf16 before it), and those 2^-8 relative differences compound over 30
 # layers: allow 5% of the largest logit.
 PREFILL_RTOL = 0.05
+# 6a timing: the kernel and SDPA alternate, ROUNDS rounds of REPS launches
+FLASH_ROUNDS, FLASH_REPS = 5, 20
 
 
 def check(cond: bool, what: str) -> None:
@@ -346,12 +360,17 @@ def phase_checkpoint(gen: torch.Generator) -> dict:
             "cross_rack_blocks": report.cross_rack_blocks, "host_s": dt}
 
 
+def flash_flops(b: int, sq: int, sk: int, h: int, d: int, causal: bool) -> int:
+    """4·d FLOP per (row, visible column) pair: QK^T and PV, 2·d each."""
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    return 4 * b * h * d * pairs
+
+
 def flash_bound(b: int, sq: int, sk: int, h: int, kvh: int, d: int, causal: bool,
                 itemsize: int) -> tuple[float, str]:
     """Least time for one attention forward: q, k, v read once and o written
-    once, against 4·d FLOP per (row, visible column) pair at the bf16 rate."""
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-    flops = 4 * b * h * d * pairs
+    once, against its FLOP (``flash_flops``) at the bf16 rate."""
+    flops = flash_flops(b, sq, sk, h, d, causal)
     moved = itemsize * (2 * b * sq * h * d + 2 * b * sk * kvh * d)
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
@@ -382,8 +401,45 @@ def check_flash(errs: dict, atol: float, what: str) -> None:
           and errs["max_err_over_scale"] <= FLASH_REL_SCALE, f"flash {what}: {errs}")
 
 
-def phase_flash(gen: torch.Generator, cfg, batch: int, seq: int) -> dict:
-    """6a: the kernel against its plain version, then timed at the layer shape."""
+def time_in_turns(fns: dict, rounds: int, reps: int) -> dict:
+    """Each of ``fns`` timed in turns (a, b, a, b, ...) over ``rounds`` rounds
+    of ``reps`` launches: per name, the median ms per call, its min-max
+    spread, and every round's ms."""
+    times: dict[str, list[float]] = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(cuda_ms(fn, reps))
+    return {name: {"ms": float(np.median(ts)), "ms_spread": [min(ts), max(ts)], "rounds_ms": ts}
+            for name, ts in times.items()}
+
+
+def flash_timing(q, k, v, causal: bool) -> dict:
+    """The kernel and SDPA on the same (B, S, H, D) inputs, timed in turns,
+    with the kernel's achieved TFLOP/s and share of its bound."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, D) views
+    turns = time_in_turns({
+        "kernel": lambda: flash_attention(q, k, v, causal=causal),
+        "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True),
+    }, FLASH_ROUNDS, FLASH_REPS)
+    kern, sdpa = turns["kernel"], turns["sdpa"]
+    b_ms, b_by = flash_bound(b, sq, sk, h, kvh, d, causal, q.element_size())
+    flops = flash_flops(b, sq, sk, h, d, causal)
+    return {"shape": [b, sq, sk, h, kvh, d], "causal": causal,
+            "ms": kern["ms"], "ms_spread": kern["ms_spread"], "rounds_ms": kern["rounds_ms"],
+            "tflops": flops / kern["ms"] / 1e9, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / kern["ms"],
+            "library_ms": sdpa["ms"], "library_ms_spread": sdpa["ms_spread"],
+            "library_tflops": flops / sdpa["ms"] / 1e9,
+            "kernel_over_library": kern["ms"] / sdpa["ms"]}
+
+
+def phase_flash(gen: torch.Generator, cfg, batch: int, seq: int,
+                ragged_batch: int, ragged_len: int) -> dict:
+    """6a: the kernel against its plain version, then timed at the layer shape
+    and at a ragged one."""
     def rand(*shape, dtype):
         return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
@@ -408,15 +464,15 @@ def phase_flash(gen: torch.Generator, cfg, batch: int, seq: int) -> dict:
     e = flash_errors(got, q, k, v, True)
     check_flash(e, FLASH_ATOL[torch.bfloat16], "at the model shape")
     del got
-    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), reps=20)
+    timing = flash_timing(q, k, v, True)
     plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True), reps=2)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, D) views
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
-    b_ms, b_by = flash_bound(batch, seq, seq, h, kvh, d, True, 2)
-    return {"shape": [batch, seq, h, kvh, d], "dtype": "bfloat16", "causal": True,
-            **e, "errs_sweep": errs, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+    del q, k, v
+    q = rand(ragged_batch, ragged_len, h, d, dtype=torch.bfloat16)
+    k = rand(ragged_batch, ragged_len, kvh, d, dtype=torch.bfloat16)
+    v = rand(ragged_batch, ragged_len, kvh, d, dtype=torch.bfloat16)
+    ragged = flash_timing(q, k, v, True)
+    return {"dtype": "bfloat16", **e, "errs_sweep": errs, **timing, "plain_ms": plain_ms,
+            "ragged": ragged}
 
 
 def profile_device(fn, steps: int) -> dict:
@@ -513,6 +569,30 @@ def phase_serve(gen: torch.Generator, cfg, model, batch: int, prompt: int, new: 
             "decode_ms_per_step": gen_s * 1e3 / new, "decode_profile": prof}
 
 
+def ptxas_report(log: str) -> list[dict]:
+    """ptxas's lines for each kernel of one build log: the (mangled) entry,
+    its registers at entry, spill stores and loads, and static shared memory.
+    A kernel that calls ``setmaxnreg`` changes its count after entry."""
+    rows: list[dict] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            rows.append({"entry": m.group(1), "registers": 0, "spill_stores": 0,
+                         "spill_loads": 0, "smem_static": 0})
+            continue
+        if not rows:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            rows[-1]["spill_stores"], rows[-1]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows[-1]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            rows[-1]["smem_static"] = int(sm.group(1)) if sm else 0
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -521,10 +601,18 @@ def main() -> int:
     build.build_all()
     build_s = time.perf_counter() - t0
     for name, log in build.build_logs.items():
-        regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
-        spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores", log)]
-        print(f"[build {name}] {len(regs)} kernels, registers max {max(regs, default=0)}, "
-              f"spill stores max {max(spills, default=0)} bytes")
+        kernels = ptxas_report(log)
+        print(f"[build {name}] {len(kernels)} kernels, registers max "
+              f"{max((r['registers'] for r in kernels), default=0)}, spill stores max "
+              f"{max((r['spill_stores'] for r in kernels), default=0)} bytes")
+        for row in kernels:
+            if name == "flash_attention":
+                print(f"[build {name}] {json.dumps(row)}")
+    for d in (32, 64, 128):
+        geo = hopper_config(d)
+        check(geo == hopper_geometry(d), f"head dim {d}: kernel geometry {geo} != "
+              f"the wrapper's {hopper_geometry(d)}")
+        print(f"[build flash_attention] bf16 kernel at head dim {d}: {json.dumps(geo)}")
     print(f"[build] {build_s:.1f} s")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -574,7 +662,7 @@ def main() -> int:
     model = backbone.init_model(cfg, generator=gen, device=DEVICE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
-    fl = phase_flash(gen, cfg, PREFILL_BATCH, PREFILL_LEN)
+    fl = phase_flash(gen, cfg, PREFILL_BATCH, PREFILL_LEN, RAGGED_BATCH, RAGGED_LEN)
     print(f"[6a flash] {json.dumps(fl)}")
     flash_attention.launches = 0  # count the serve path's launches only
     t = time.perf_counter()
@@ -616,11 +704,19 @@ def main() -> int:
         "max_err_over_scale": fl["max_err_over_scale"],
         "errs_sweep": fl["errs_sweep"],
         "ms": fl["ms"],
+        "ms_spread": fl["ms_spread"],
+        "tflops": fl["tflops"],
+        "bound_share": fl["bound_share"],
         "plain_ms": fl["plain_ms"],
         "bound_ms": fl["bound_ms"],
         "bound_by": fl["bound_by"],
         "library_ms": fl["library_ms"],
+        "library_ms_spread": fl["library_ms_spread"],
+        "kernel_over_library": fl["kernel_over_library"],
         "shape": fl["shape"],
+        "ragged": {key: fl["ragged"][key] for key in (
+            "shape", "ms", "ms_spread", "tflops", "bound_ms", "bound_share", "library_ms",
+            "kernel_over_library")},
     }]}
     print(json.dumps({"phases_host_s": {k: v["host_s"] for k, v in phases.items()},
                       "build_s": build_s, "total_s": time.perf_counter() - t0}))

@@ -4,7 +4,10 @@ Each source under ``csrc/`` has a plain C interface and is compiled on its own
 into a shared library under ``<repo>/build/kernels/``, at first use:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so csrc/<name>.cu -lcuda
+
+``-lcuda`` links the driver API, whose ``cuTensorMapEncodeTiled`` builds the
+flash kernel's TMA descriptors.
 
 The file name carries a hash of the source and flags, so an edited source is
 rebuilt and concurrent builds never overwrite a library another process has
@@ -31,6 +34,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-lcuda"]  # after the source, so the linker keeps the library
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -47,25 +51,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+def _target(name: str, source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, Path]:
-    """Compile the named sources (all by default), one ``nvcc`` each, all
-    started together; returns name -> library path.  Raises on failure."""
+    """Compile the named sources (all by default); returns name -> library
+    path.  Raises on failure."""
     names = list(SOURCES) if names is None else names
+    return compile_sources({name: SOURCES[name] for name in names})
+
+
+def compile_sources(sources: dict[str, Path]) -> dict[str, Path]:
+    """Compile each source (name -> ``.cu`` path), one ``nvcc`` each, all
+    started together, into ``BUILD_DIR``; returns name -> library path.
+    Raises on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {name: _target(name) for name in names}
+    targets = {name: _target(name, src) for name, src in sources.items()}
     procs = {}
     for name, target in targets.items():
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources[name]), *LINK_FLAGS],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     failed = []

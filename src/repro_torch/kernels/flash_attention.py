@@ -6,12 +6,17 @@ by ``flash_attention``), the TPU kernel of the serving path's full-sequence
 attention (``models/attention.py``).
 
 What bounds it on Hopper: at the model's prefill shape (StarCoder2-3B,
-B 4, S 4096, H 24 over 2 KV heads, D 128, causal) the forward is about
-4.1e11 FLOP against 218 MB moved, so it is bound by operations (about
-0.42 ms at the data sheet's 989 TFLOP/s bf16, against 0.07 ms for the bytes).
-The kernel keeps the (S, S) scores out of device memory, runs both
-products of the bf16 path on the tensor cores (``mma.sync``), and skips the
-kv tiles above the causal diagonal.  See the source for the design.
+B 4, S 4096, H 24 over 2 KV heads, D 128, causal) the forward is 4.12e11
+FLOP against 218 MB moved, so it is bound by operations (0.417 ms at the
+data sheet's 989 TFLOP/s bf16, against 0.065 ms for the bytes).  The bf16
+kernel is built to keep the tensor cores fed: persistent CTAs, one per SM,
+walk the (batch*head, 128 q rows) items longest first; in each, a producer
+warpgroup's one thread feeds a two-stage ring of K/V tiles by TMA, and two
+consumer warpgroups run both products as ``wgmma``, taking turns to issue
+them so that one's online softmax (on the accumulators, in registers) runs
+while the other's products do.  The (S, S) scores never leave the SM and kv
+tiles above the causal diagonal are skipped.  See the source for the
+design; the f32 path runs on the CUDA cores.
 
 On a CPU tensor the wrapper runs the plain version, ``flash_attention_ref``;
 on a CUDA tensor it launches the kernel or raises.
@@ -50,9 +55,9 @@ def flash_attention_ref(
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
-@functools.lru_cache(maxsize=1)
-def _launch_fn():
-    fn = build.load("flash_attention").flash_attention_launch
+def bind(lib: ctypes.CDLL):
+    """``flash_attention_launch`` of a built library, with its C signature."""
+    fn = lib.flash_attention_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -61,6 +66,57 @@ def _launch_fn():
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=1)
+def _launch_fn():
+    return bind(build.load("flash_attention"))
+
+
+# The bf16 kernel's tiling (``Tiles<D>`` and the constants above it in
+# csrc/flash_attention.cu): 128 q rows per CTA, 64 per consumer warpgroup;
+# 128 kv rows per ring stage; 2 stages; a producer warpgroup and two consumer
+# warpgroups, whose registers setmaxnreg sets.
+TILE_M, TILE_N, STAGES, THREADS = 128, 128, 2, 384
+PRODUCER_REGS, CONSUMER_REGS = 24, 240
+SMEM_LIMIT = 232_448  # bytes of shared memory one block can use on Hopper
+
+
+def hopper_geometry(head_dim: int) -> dict[str, int]:
+    """The bf16 kernel's geometry at ``head_dim``, as its source computes it.
+
+    A tile row of D bf16 is staged by TMA in boxes of ``box_cols`` columns
+    under a ``swizzle_bytes`` swizzle (128 B, or 64 B at D 32), the layout
+    the ``wgmma`` descriptors read; at D 128 a row is two boxes.  Shared
+    memory holds Q, the output tile staged for its TMA store, the ring's K
+    and V stages, four barriers per stage and two for Q, and 1024 bytes to
+    align the swizzle period.
+    """
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} not in {HEAD_DIMS}")
+    swizzle = min(2 * head_dim, 128)
+    smem = (2 * TILE_M + 2 * STAGES * TILE_N) * head_dim * 2 + 8 * (2 + 4 * STAGES) + 1024
+    return {"tile_m": TILE_M, "tile_n": TILE_N, "stages": STAGES, "threads": THREADS,
+            "smem_bytes": smem, "producer_regs": PRODUCER_REGS,
+            "consumer_regs": CONSUMER_REGS, "swizzle_bytes": swizzle,
+            "box_cols": swizzle // 2, "boxes": head_dim // (swizzle // 2)}
+
+
+def hopper_config(head_dim: int) -> dict[str, int]:
+    """The same geometry as the built kernel reports it (needs the build)."""
+    keys = list(hopper_geometry(head_dim))
+    out = (ctypes.c_int * len(keys))()
+    err = build.load("flash_attention").flash_attention_hopper_config(head_dim, out)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_hopper_config({head_dim}) failed: {err}")
+    return dict(zip(keys, out))
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """TMA reads a (B, S, heads, D) tensor whose base and byte strides are
+    multiples of 16; the kernel's tensor maps take the strides as they are."""
+    return t.data_ptr() % 16 == 0 and all(
+        s * t.element_size() % 16 == 0 for s in t.stride()[:3])
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -81,8 +137,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.stride(3) != 1:
                 raise ValueError(f"{name} must be contiguous along the head dim")
-            if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
+            if not rows_aligned(t):
                 raise ValueError(f"{name} rows must be 16-byte aligned (strides {t.stride()})")
+
+
+def launch(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """One launch of ``flash_attention_launch`` (``fn``, from a build of the
+    source) on CUDA tensors that ``_check`` has passed; raises if it fails."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, sq, sk, h, kvh, d, *strides,
+                 int(causal), _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(d), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    return out
 
 
 def flash_attention(
@@ -98,21 +171,11 @@ def flash_attention(
         return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
-    b, sq, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    if sk == 0:
-        return out.zero_()
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _launch_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                           b, sq, sk, h, kvh, d, *strides,
-                           int(causal), _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(d), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
+    if q.numel() == 0:
+        return q.new_empty(q.shape)
+    if k.shape[1] == 0:
+        return q.new_zeros(q.shape)
+    out = launch(_launch_fn(), q, k, v, causal)
     flash_attention.launches += 1
     return out
 

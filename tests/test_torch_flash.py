@@ -5,8 +5,10 @@ On a CPU tensor the port's ``flash_attention`` runs its plain version,
 interpret mode over the reference's sweep (``tests/test_flash_attention.py``
 ``SWEEP``): atol 3e-5 at f32 and 3e-2 at bf16, the reference's own
 tolerances.  The port's ``_chunked_attention`` must match the JAX one at f32.
-The wrapper's input checks run on the CPU too; the kernel itself is held
-against the plain version on the card (``tests/test_torch_gpu.py``).
+The wrapper's input checks and the bf16 kernel's TMA/wgmma geometry
+(``hopper_geometry``, which ``chip_smoke.py`` holds equal to the built
+kernel's) are checked on the CPU too; the kernel itself is held against the
+plain version on the card (``tests/test_torch_gpu.py``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,14 @@ from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.models.attention import _chunked_attention as jax_chunked
 
 from repro_torch.configs import get_smoke
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention import (
+    HEAD_DIMS,
+    SMEM_LIMIT,
+    flash_attention,
+    flash_attention_ref,
+    hopper_geometry,
+    rows_aligned,
+)
 from repro_torch.models.attention import Attention, _chunked_attention, attention
 
 SWEEP = [
@@ -165,3 +174,34 @@ def test_attention_flash_dispatch_at_any_length(monkeypatch, s):
     attention(p, cfg, x)
     assert len(calls) == 1
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=3e-5)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_hopper_geometry_fits_tma_and_wgmma(d):
+    """The boxes tile D exactly; a box row is at most the 128 B a swizzled TMA
+    box may span, and is exactly the swizzle the wgmma descriptors assume;
+    every buffer starts on the 1024-byte swizzle period; shared memory and
+    the setmaxnreg split fit one SM."""
+    geo = hopper_geometry(d)
+    assert geo["box_cols"] * geo["boxes"] == d
+    assert geo["box_cols"] * 2 == geo["swizzle_bytes"] <= 128
+    assert geo["swizzle_bytes"] in (64, 128) and geo["swizzle_bytes"] % 16 == 0
+    assert geo["tile_m"] == 2 * 64 and geo["tile_n"] % 16 == 0 and geo["tile_n"] <= 256
+    for rows in (64, geo["tile_m"], geo["tile_n"]):  # Q/O boxes, Q and K/V tiles
+        assert rows * geo["swizzle_bytes"] % 1024 == 0 and rows <= 256
+    assert geo["smem_bytes"] <= SMEM_LIMIT
+    assert geo["threads"] == 3 * 128
+    assert 128 * geo["producer_regs"] + 256 * geo["consumer_regs"] <= 65536
+    assert geo["producer_regs"] % 8 == 0 and geo["consumer_regs"] % 8 == 0
+
+
+def test_rows_aligned_accepts_fused_views_and_refuses_odd_strides():
+    """The tensor maps read q/k/v through their byte strides, which must be
+    multiples of 16: views of a fused (B, S, H + 2 kvH, D) tensor pass, a
+    head dim cut out of a wider row does not."""
+    for d in HEAD_DIMS:
+        fused = torch.zeros(2, 9, 6 + 2 * 2, d, dtype=torch.bfloat16)
+        assert all(rows_aligned(t) for t in (fused[:, :, :6], fused[:, :, 6:8], fused[:, :, 8:]))
+    assert not rows_aligned(torch.zeros(1, 9, 2, 36, dtype=torch.bfloat16)[..., :32])
+    with pytest.raises(ValueError):
+        hopper_geometry(48)

@@ -104,12 +104,20 @@ def test_checkpoint_roundtrip_on_card(dev, tmp_path):
         assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
 
-# tests/test_flash_attention.py SWEEP: b, sq, sk, h, kvh, d, causal; plus ragged lengths
+# tests/test_flash_attention.py SWEEP: b, sq, sk, h, kvh, d, causal; plus ragged
+# lengths, and the bf16 kernel's pipeline cases: 16 kv tiles wrap its 2-stage
+# K/V ring 8 times; Sq < Sk, causal, ragged on both axes; a causal 192-row
+# query whose second 128-row tile has a consumer warpgroup with no valid row;
+# and more work items than SMs for the persistent CTAs, with the ragged
+# items (a warpgroup with no valid row) first, one or several per CTA
 FLASH_SWEEP = [
     (1, 256, 256, 2, 2, 64, True), (2, 512, 512, 1, 1, 128, True),
     (1, 256, 512, 2, 2, 64, False), (1, 256, 256, 4, 2, 64, True),
     (2, 256, 256, 8, 2, 32, True), (1, 128, 384, 3, 1, 64, False),
     (1, 100, 77, 4, 2, 128, True), (2, 77, 130, 6, 3, 32, False),
+    (1, 2048, 2048, 4, 1, 128, True), (1, 2048, 2048, 4, 1, 128, False),
+    (2, 130, 300, 4, 2, 64, True), (1, 192, 192, 4, 2, 32, True),
+    (2, 1050, 1050, 96, 8, 64, True), (4, 50, 300, 80, 4, 64, False),
 ]
 
 
@@ -128,6 +136,27 @@ def test_flash_kernel_matches_plain_and_launches(dev, b, sq, sk, h, kvh, d, caus
     assert flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == (b, sq, h, d)
     want = flash_attention_ref(q, k, v, causal=causal)
+    assert float((got.float() - want.float()).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 3e-5), (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernel_reads_views_of_fused_qkv(dev, d, dtype, atol):
+    """q, k and v as strided views of one (B, S, H + 2 kvH, D) tensor: the
+    kernel (its TMA tensor maps, on the bf16 path) reads them through their
+    byte strides and gives what it gives on contiguous copies."""
+    b, s, h, kvh = 2, 300, 6, 2
+    g = torch.Generator(device=dev)
+    g.manual_seed(d)
+    fused = torch.randn((b, s, h + 2 * kvh, d), generator=g, device=dev).to(dtype)
+    q, k, v = fused[:, :, :h], fused[:, :, h:h + kvh], fused[:, :, h + kvh:]
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    got = flash_attention(q, k, v, causal=True)
+    dense = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
+    want = flash_attention_ref(q, k, v, causal=True)
     assert float((got.float() - want.float()).abs().max()) <= atol
 
 
