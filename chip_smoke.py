@@ -10,7 +10,11 @@ drives the main path through the entry points a user calls, at the paper's
 1. kernel vs plain: the GF(2^8) kernel against ``gf_matmul_table`` on the
    card, byte-exact, over the reference's test shapes, ragged widths and
    every product shape of the main path at full width; timed with CUDA
-   events;
+   events at the four parity encodes and DRC(9,6,3)'s batched NodeEncode,
+   RelayerEncode and decode, in turns, 5 rounds of 10 launches (median,
+   min-max spread, share of the byte bound).  A ``[1 model]`` line gives the
+   TPU kernel's int8 bitplane product at each timed shape at the int8
+   tensor-core rate: a computed cost of that algorithm, not a measurement;
 2. encode: systematic in-place encode of one stripe per code;
 3. repair: layered repair of nodes 0 and n-1 per code, through both
    ``RepairPlan.execute`` and ``spmd_repair``, byte-exact, with the traced
@@ -128,6 +132,8 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 128, 32
 PREFILL_RTOL = 0.05
 # 6a timing: the kernel and SDPA alternate, ROUNDS rounds of REPS launches
 FLASH_ROUNDS, FLASH_REPS = 5, 20
+# phase 1 timing: the five GF products alternate, ROUNDS rounds of REPS launches
+GF_ROUNDS, GF_REPS = 5, 10
 
 
 def check(cond: bool, what: str) -> None:
@@ -157,13 +163,16 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def bound(r: int, k: int, b: int, g: int = 1) -> tuple[float, str]:
-    """Least time for a (G, R, K, B) product: each input read once and the
-    output written once, against the bitplane form's int8 operations."""
-    moved = g * ((r + k) * b + r * k)
-    ops = g * 2 * (8 * r) * (8 * k) * b
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """Least time for a (G, R, K, B) GF(256) product by any implementation:
+    each input read once and the output written once, over the HBM rate."""
+    return g * ((r + k) * b + r * k) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def int8_bitplane_ms(r: int, k: int, b: int, g: int = 1) -> float:
+    """The TPU kernel's int8 bitplane product, (8R, 8K) x (8K, B), at the
+    int8 tensor-core rate: the computed cost of one algorithm that nothing
+    here runs, neither a floor nor a measurement."""
+    return g * 2 * (8 * r) * (8 * k) * b / INT8_OPS_PER_S * 1e3
 
 
 class KernelCheck:
@@ -193,7 +202,9 @@ def phase_kernel(gen: torch.Generator) -> dict:
     for r, k, b in SHAPES:
         kc.compare(rand_bytes((1, r, k), gen), rand_bytes((1, k, b), gen), f"{r}x{k}x{b}")
     kc.compare(rand_bytes((9, 5, 7), gen), rand_bytes((9, 7, 333), gen), "batched ragged")
-    timings = []
+    timed = {}  # label -> (m, x, out): the products timed in turns
+    repair_steps = {}  # DRC(9,6,3)'s NodeEncode, RelayerEncode and decode
+    plain = {}
     for fam, n, k, r in CODES:
         code = make_code(fam, n, k, r)
         sub = sub_bytes(code.alpha)
@@ -203,31 +214,52 @@ def phase_kernel(gen: torch.Generator) -> dict:
         x = rand_bytes((1, ka, sub), gen)
         kc.compare(m, x, f"{code!r} encode")
         out = torch.empty((1, m.shape[1], sub), dtype=torch.uint8, device=DEVICE)
-        ms = cuda_ms(lambda: gf_matmul_batched(m, x, out), reps=10)
-        plain_ms = cuda_ms(lambda: gf_matmul_table(m[0], x[0]), reps=2)
-        b_ms, b_by = bound(m.shape[1], ka, sub)
-        timings.append({"code": repr(code), "shape": [1, m.shape[1], ka, sub],
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by})
-        del x, out
+        timed[f"{code!r} encode"] = (m, x, out)
+        plain[f"{code!r} encode"] = cuda_ms(lambda: gf_matmul_table(m[0], x[0]), reps=2)
         # the emulated mesh's batched products of one repair, at full width
         spec = plan_to_spmd(code, code.repair_plan(0))
         nm = torch.from_numpy(spec.node_mats).to(DEVICE)
         xs = rand_bytes((code.n, code.alpha, sub), gen)
         kc.compare(nm, xs, f"{code!r} node_encode")
-        ms = cuda_ms(lambda: gf_matmul_batched(nm, xs), reps=3)
-        b_ms, b_by = bound(spec.nu, code.alpha, sub, g=code.n)
-        timings.append({"code": repr(code), "shape": [code.n, spec.nu, code.alpha, sub],
-                        "ms": ms, "bound_ms": b_ms, "bound_by": b_by})
+        steps = {f"{code!r} node_encode": (nm, xs)}
         del xs
         if spec.ru:
             rel = spec.rel_idx.astype(np.int64)
             rm = torch.from_numpy(np.ascontiguousarray(spec.relayer_mats[rel])).to(DEVICE)
-            kc.compare(rm, rand_bytes((len(rel), rm.shape[2], sub), gen),
-                       f"{code!r} relayer_encode")
+            xr = rand_bytes((len(rel), rm.shape[2], sub), gen)
+            kc.compare(rm, xr, f"{code!r} relayer_encode")
+            steps[f"{code!r} relayer_encode"] = (rm, xr)
+            del xr
         dm = torch.from_numpy(spec.decode).to(DEVICE)[None]
-        kc.compare(dm, rand_bytes((1, dm.shape[2], sub), gen), f"{code!r} decode")
+        xd = rand_bytes((1, dm.shape[2], sub), gen)
+        kc.compare(dm, xd, f"{code!r} decode")
+        steps[f"{code!r} decode"] = (dm, xd)
+        del xd
+        if (fam, n, k, r) == CODES[0]:  # DRC(9,6,3)'s repair steps are timed too
+            for label, (sm, sx) in steps.items():
+                out = torch.empty((sm.shape[0], sm.shape[1], sub), dtype=torch.uint8,
+                                  device=DEVICE)
+                repair_steps[label] = (sm, sx, out)
+        del steps
         torch.cuda.empty_cache()
-    return {"check": kc, "timings": timings}
+    timed.update(repair_steps)
+    turns = time_in_turns({label: (lambda m=m, x=x, o=o: gf_matmul_batched(m, x, o))
+                           for label, (m, x, o) in timed.items()}, GF_ROUNDS, GF_REPS)
+    timings = []
+    model = {}  # label -> the int8 bitplane product's computed ms
+    for label, (m, x, _) in timed.items():
+        g, r, k = m.shape
+        b = x.shape[2]
+        b_ms, b_by = bound(r, k, b, g)
+        t = turns[label]
+        timings.append({"label": label, "shape": [g, r, k, b], "ms": t["ms"],
+                        "ms_spread": t["ms_spread"], "rounds_ms": t["rounds_ms"],
+                        "plain_ms": plain.get(label), "bound_ms": b_ms, "bound_by": b_by,
+                        "bound_share": b_ms / t["ms"]})
+        model[label] = int8_bitplane_ms(r, k, b, g)
+    del timed
+    torch.cuda.empty_cache()
+    return {"check": kc, "timings": timings, "int8_bitplane_ms": model}
 
 
 def phase_encode(gen: torch.Generator) -> dict:
@@ -606,8 +638,7 @@ def main() -> int:
               f"{max((r['registers'] for r in kernels), default=0)}, spill stores max "
               f"{max((r['spill_stores'] for r in kernels), default=0)} bytes")
         for row in kernels:
-            if name == "flash_attention":
-                print(f"[build {name}] {json.dumps(row)}")
+            print(f"[build {name}] {json.dumps(row)}")
     for d in (32, 64, 128):
         geo = hopper_config(d)
         check(geo == hopper_geometry(d), f"head dim {d}: kernel geometry {geo} != "
@@ -629,6 +660,8 @@ def main() -> int:
     print(f"[1 kernel] {kc.compared} bytes compared, {kc.mismatched} differ")
     for row in k1["timings"]:
         print(f"[1 kernel] {json.dumps(row)}")
+    print("[1 model] computed, not measured: the TPU kernel's int8 bitplane product at "
+          f"the int8 tensor-core rate, ms: {json.dumps(k1['int8_bitplane_ms'])}")
 
     gf_matmul_batched.launches = 0  # count the main path's launches only
     torch.cuda.reset_peak_memory_stats()
@@ -688,11 +721,16 @@ def main() -> int:
         "max_abs_err": kc.max_abs_err,
         "mismatched_bytes": kc.mismatched,
         "ms": head["ms"],
+        "ms_spread": head["ms_spread"],
+        "bound_share": head["bound_share"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": None,
         "shape": head["shape"],
+        "shapes": [{key: row[key] for key in (
+            "label", "shape", "ms", "ms_spread", "bound_ms", "bound_share")}
+            for row in k1["timings"]],
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -4,15 +4,17 @@ Replaces ``src/repro/kernels/gf_matmul.py::_gf_bitplane_kernel`` (launched
 by ``gf_matmul_pallas``), the TPU kernel of every erasure-coding product:
 ISA-L's ``ec_encode_data`` (paper §5.2).
 
-What bounds it on Hopper: the TPU kernel runs the product as an int8
-bitplane matmul, ``pack((bits(M) @ unpack(X)) & 1)``, with the whole
-(8R, 8K) bit-matrix resident in VMEM.  That matrix exceeds a block's 227 KB
-of shared memory at the main path's widest product (MSR(9,6,3) encode:
-840 KB), and the bitplane form multiplies 64x the GF coefficients.  The CUDA
-kernel keeps the R*K GF(256) coefficients resident instead and expands each
-into its eight bit-matrix columns ``c * 2^i`` through an 8 KB table, applying
-them to 4 payload bytes at a time with one LOP3 per column (see the source).
-At the main path's shapes it is bound by integer issue, not by bytes.
+The CUDA kernel is a bitsliced GF(2^8) product (see the source's header):
+each lane transposes 32 payload bytes into 8 bit-planes and forms the
+multiples x * 2^i by doubling in plane form; each nonzero coefficient of a
+work list adds to its row's accumulator (in shared memory) the multiples its
+bits select, one warp-uniform indirect branch per nibble.  Payload rows
+stream through a 2-stage shared-memory ring (``cp.async``) per group of
+warps, so a payload byte is read from device memory once per block.  The
+TPU kernel's int8 bitplane form was weighed and not taken: 64 int8 MACs per
+GF multiply-add, plus unpacking and packing.  One kernel serves every
+shape; it is bound by integer issue: a little above the byte time at the
+small-K products, several times it at the MSR(9,6,3) encode.
 
 On a CPU tensor the wrapper runs the plain version,
 ``repro_torch.core.gf_torch.gf_matmul_table``; on a CUDA tensor it launches
@@ -29,12 +31,12 @@ from repro_torch.core.gf_torch import gf_matmul_table
 
 from . import build
 
-_ALIGN = 16  # the kernel's vector path: 16-byte strips
+_ALIGN = 16  # the kernel's vector path: cp.async and 16-byte stores
 
 
-@functools.lru_cache(maxsize=1)
-def _launch_fn():
-    fn = build.load("gf_matmul").gf_matmul_launch
+def bind(lib: ctypes.CDLL):
+    """``gf_matmul_launch`` of a built library, with its C signature."""
+    fn = lib.gf_matmul_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
@@ -42,6 +44,11 @@ def _launch_fn():
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=1)
+def _launch_fn():
+    return bind(build.load("gf_matmul"))
 
 
 def _check(m: torch.Tensor, x: torch.Tensor, out: torch.Tensor | None) -> None:
@@ -59,6 +66,21 @@ def _check(m: torch.Tensor, x: torch.Tensor, out: torch.Tensor | None) -> None:
             raise ValueError(f"out must be uint8 {want}, got {out.dtype} {tuple(out.shape)}")
         if out.device != x.device or not out.is_contiguous():
             raise ValueError("out must be contiguous and on x's device")
+
+
+def launch(fn, m: torch.Tensor, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """One launch of ``gf_matmul_launch`` (``fn``, from a build of a source)
+    on CUDA tensors m (G,R,K), x (G,K,B) and out (G,R,B) that ``_check`` has
+    passed, with G, R, K and B nonzero; raises if it fails."""
+    g, r, k = m.shape
+    b = x.shape[2]
+    aligned = b % _ALIGN == 0 and all(t.data_ptr() % _ALIGN == 0 for t in (x, out))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(m.data_ptr(), x.data_ptr(), out.data_ptr(), g, r, k, b, int(aligned), stream)
+    if err != 0:
+        raise RuntimeError(f"gf_matmul kernel launch failed: cudaError {err}")
+    return out
 
 
 def gf_matmul_batched(
@@ -84,15 +106,7 @@ def gf_matmul_batched(
         return out
     if k == 0:
         return out.zero_()
-    aligned = b % _ALIGN == 0 and all(
-        t.data_ptr() % _ALIGN == 0 for t in (x, out)
-    )
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _launch_fn()(m.data_ptr(), x.data_ptr(), out.data_ptr(),
-                           g, r, k, b, int(aligned), stream)
-    if err != 0:
-        raise RuntimeError(f"gf_matmul kernel launch failed: cudaError {err}")
+    launch(_launch_fn(), m, x, out)
     gf_matmul_batched.launches += 1
     return out
 

@@ -1,6 +1,7 @@
-"""Plain torch oracles: the GF(2^8) product (mul-table path) and the
-streaming-softmax attention recurrence shared by ``flash_attention_ref`` and
-the model's chunked attention path."""
+"""Plain torch oracles: the GF(2^8) product (mul-table path), a CPU model of
+the CUDA kernel's bitsliced arithmetic, and the streaming-softmax attention
+recurrence shared by ``flash_attention_ref`` and the model's chunked
+attention path."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,10 +11,74 @@ from repro_torch.core.gf_torch import gf_matmul_table
 
 NEG_INF = -1e30
 
+_WORD = 0xFFFFFFFF
+# the swap-move stages of the 8 x 8 bit transpose, as ``csrc/gf_matmul.cu``
+_SWAP_STAGES = ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F))
+
 
 def gf_matmul_ref(m: torch.Tensor | np.ndarray, x: torch.Tensor) -> torch.Tensor:
     """Reference GF(256) product: (R, K) x (K, B) -> (R, B), all uint8."""
     return gf_matmul_table(m, x)
+
+
+def _transpose8(w: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The kernel's bit transpose of 8 words (int64 tensors holding uint32):
+    in every byte position, word i gets bit i of each word j at bit j.  It is
+    its own inverse."""
+    w = list(w)
+    for s, mask in _SWAP_STAGES:
+        for i in range(8):
+            if i & s:
+                continue
+            t = ((w[i] >> s) ^ w[i + s]) & mask
+            w[i + s] = w[i + s] ^ t
+            w[i] = w[i] ^ ((t << s) & _WORD)
+    return w
+
+
+def _double(p: list[torch.Tensor]) -> list[torch.Tensor]:
+    """x * 2 in plane form, mod 0x11D: the planes shift up by one and plane 7
+    feeds planes 0, 2, 3 and 4."""
+    return [p[7], p[0], p[1] ^ p[7], p[2] ^ p[7], p[3] ^ p[7], p[4], p[5], p[6]]
+
+
+def gf_matmul_bitsliced(m: torch.Tensor | np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """GF(256) product (R, K) x (K, B) -> (R, B) uint8, by the CUDA kernel's
+    arithmetic, in plain torch on the CPU (tests only; never on the path).
+
+    The payload is cut into 32-byte groups (the last zero-padded), each read
+    as 8 little-endian 32-bit words and bit-transposed into 8 planes.  The
+    multiples x * 2^i are formed by doubling in plane form; the low nibble of
+    a coefficient selects among x .. 8x, the high nibble among 16x .. 128x
+    (the kernel doubles its four multiples in place between the two).  Each
+    row's 8 accumulator planes are transposed back to bytes at the end.
+    """
+    m = torch.as_tensor(np.asarray(m, dtype=np.uint8)) if isinstance(m, np.ndarray) else m
+    r, k = m.shape
+    b = x.shape[1]
+    groups = -(-b // 32)
+    padded = torch.zeros((k, groups * 32), dtype=torch.uint8)
+    padded[:, :b] = x.cpu()
+    words = padded.view(k, groups, 8, 4).long()
+    words = words[..., 0] | words[..., 1] << 8 | words[..., 2] << 16 | words[..., 3] << 24
+    acc = [[torch.zeros((groups,), dtype=torch.long) for _ in range(8)] for _ in range(r)]
+    coef = m.cpu().long().tolist()
+    for j in range(k):
+        mult = [_transpose8([words[j, :, q] for q in range(8)])]
+        for _ in range(7):
+            mult.append(_double(mult[-1]))
+        for row in range(r):
+            c = coef[row][j]
+            for bit in range(8):
+                if c >> bit & 1:
+                    acc[row] = [a ^ p for a, p in zip(acc[row], mult[bit])]
+    out = torch.empty((r, groups, 8, 4), dtype=torch.uint8)
+    for row in range(r):
+        back = _transpose8(acc[row])
+        for q in range(8):
+            for t in range(4):
+                out[row, :, q, t] = (back[q] >> (8 * t)) & 0xFF
+    return out.view(r, groups * 32)[:, :b].to(x.device)
 
 
 def streaming_attention(

@@ -20,6 +20,7 @@ from repro_torch.core import gf_torch
 from repro_torch.core.codes import DRCFamily1
 from repro_torch.kernels import ops
 from repro_torch.kernels.gf_matmul import gf_matmul_batched
+from repro_torch.kernels.ref import gf_matmul_bitsliced
 
 # tests/test_kernels.py SHAPES plus the ragged widths B = 17 and 333
 SHAPES = [
@@ -167,3 +168,87 @@ def test_traced_kernel_span_and_counters_match_reference():
     assert span.attrs["path"] == "ref" and (span.attrs["r"], span.attrs["k"]) == (3, 6)
     for name in ("kernel.gf_matmul.bytes", "kernel.gf_matmul.calls"):
         assert tr.counter_value(name, path="ref") == rtr.counter_value(name, path="ref")
+
+
+def test_bitsliced_model_every_coefficient():
+    """The kernel's CPU model, a 1x1 product per coefficient over every byte."""
+    x = np.arange(256, dtype=np.uint8)[None]
+    for c in range(256):
+        m = np.array([[c]], dtype=np.uint8)
+        got = gf_matmul_bitsliced(m, _t(x)).numpy()
+        np.testing.assert_array_equal(got, rgf.gf_matmul(m, x), err_msg=f"c={c}")
+        np.testing.assert_array_equal(
+            got, np.asarray(gf_jax.gf_matmul_jnp(jnp.asarray(m), jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("r,k,b", SHAPES + [(3, 6, b) for b in (1, 31, 33)])
+def test_bitsliced_model_matches_jax_and_numpy(r, k, b):
+    rng = np.random.default_rng(13 + r * 1000 + k * 10 + b)
+    m, x = _rand(rng, r, k, b)
+    got = gf_matmul_bitsliced(m, _t(x)).numpy()
+    np.testing.assert_array_equal(got, rgf.gf_matmul(m, x))
+    np.testing.assert_array_equal(
+        got, np.asarray(gf_jax.gf_matmul_jnp(jnp.asarray(m), jnp.asarray(x))))
+
+
+def test_gf_ablation_variants_are_edits_of_the_kernel_source():
+    from repro_torch.kernels import build, gf_ablation
+
+    src = build.SOURCES["gf_matmul"].read_text()
+    out = gf_ablation.variant_sources(diagnostics=True)
+    assert set(out) == {"swar", "no_ring", "predicated", "final", "no_load", "no_compute"}
+    assert out["final"] == src
+    assert out["swar"] == (build.CSRC / "gf_matmul_swar.cu").read_text()
+    assert "gf_matmul_swar" not in str(build.SOURCES)  # only the ablation builds it
+    for name in ("no_ring", "predicated", "no_load", "no_compute"):
+        (step,) = {**gf_ablation.VARIANTS, **gf_ablation.DIAGNOSTICS}[name]
+        text = src
+        for old, new in gf_ablation.EDITS[step]:
+            assert src.count(old) == 1
+            text = text.replace(old, new)
+        assert out[name] == text != src
+    # the shipped source has one path: no design switch, and neither
+    # alternative body
+    for old, new in gf_ablation.EDITS["ring"] + gf_ablation.EDITS["branch"]:
+        assert new == "" or new not in src
+    assert "constexpr bool" not in src
+    with pytest.raises(RuntimeError, match="no_ring"):
+        gf_ablation.apply_edits(src, [("no such text", "")], "no_ring")
+
+
+def _fake_sass(case_lops):
+    """A kernel listing shaped like the bitsliced kernel's inner loop: the
+    head of a work list, 5 instructions, the entry loop (4 instructions, a
+    BRX and its cases, another BRX and its cases, 3 instructions and the
+    back branch)."""
+    ins = ["LDS.U16 R1, [R2]"] + ["IADD3 R3, R3, 0x1, RZ"] * 5
+    entry = len(ins)
+    ins += ["LDS.U16 R4, [R5]", "LDS.128 R8, [R6]", "LDS.128 R12, [R6+0x200]", "LDC R7, c[0x2][R7]"]
+    for _ in range(2):
+        ins.append("BRX R7 -0x10")
+        start = len(ins)
+        join = start + sum(n + 1 for n in case_lops) - 1  # the last case falls through
+        for i, n in enumerate(case_lops):
+            ins += ["LOP3.LUT R8, R8, R20, R21, 0x96, !PT"] * n
+            if i < len(case_lops) - 1:
+                ins.append(f"BRA 0x{join * 16:x}")
+        ins.append("SHF.R.U32.HI R7, RZ, 0x4, R4")
+    ins += ["STS.128 [R6], R8", "STS.128 [R6+0x200], R12", f"@P0 BRA 0x{entry * 16:x}", "EXIT"]
+    lines = [f"        /*{16 * i:04x}*/                   {t} ;" for i, t in enumerate(ins)]
+    return "Function : _Z19gf_bitsliced_kernelPKh\n" + "\n".join(lines) + "\n"
+
+
+def test_sass_count_reads_the_inner_loop():
+    from repro_torch.kernels.gf_ablation import sass_count
+
+    lops = [8 * -(-bin(n).count("1") // 2) for n in range(1, 16)]
+    m = np.array([[0x11, 0], [0, 0xF0], [0, 0]], dtype=np.uint8)  # (3, 2)
+    got = sass_count(_fake_sass(lops), m)
+    assert got["per_input_row"] == 6
+    # 4 + BRX + SHF + BRX + SHF + 2 STS + back branch
+    assert got["per_coefficient"] == 11
+    assert got["case"] == [0] + [n + 1 for n in lops[:-1]] + [lops[-1]]
+    # two columns, each with one coefficient: 0x11 (1 + 1 nibble), 0xF0 (15)
+    want = 2 * 6 + (11 + 9 + 9) + (11 + 0 + 16)
+    assert got["instructions_per_32_bytes"] == want
+    assert got["per_row_coefficient_byte"] == want / (3 * 2 * 32)

@@ -29,10 +29,14 @@ from repro_torch.train import checkpoint
 
 pytestmark = pytest.mark.gpu
 
-# tests/test_kernels.py SHAPES plus the ragged widths B = 17 and 333
+# tests/test_kernels.py SHAPES plus the ragged widths B = 17 and 333; then
+# the bitsliced kernel's edges: R 81 over its 8 row warps with a ragged B,
+# R 13 and 81 with K 1 (row warps of uneven size), B below one 32-byte
+# group, and B = 2^20 + 5 (many column tiles, a ragged last one)
 SHAPES = [
     (1, 1, 128), (2, 3, 128), (3, 6, 256), (4, 12, 384), (9, 18, 512),
     (8, 27, 1024), (16, 64, 2048), (27, 162, 512), (3, 6, 17), (3, 6, 333),
+    (81, 162, 4099), (13, 1, 1000), (81, 1, 777), (3, 6, 5), (9, 18, 2**20 + 5),
 ]
 SPMD_CODES = [("DRC", 9, 6, 3), ("DRC", 9, 5, 3), ("RS", 9, 6, 3), ("MSR", 9, 6, 3)]
 
@@ -59,14 +63,33 @@ def test_kernel_matches_plain_and_launches(dev, r, k, b):
     assert torch.equal(got, gf_matmul_table(torch.from_numpy(m).to(dev), torch.from_numpy(x).to(dev)))
 
 
-def test_kernel_batched_into_unaligned_view(dev):
-    rng = np.random.default_rng(12)
-    m, x = _rand(rng, 5, 7, 9), _rand(rng, 5, 9, 333)
-    out = torch.zeros((6, 7, 333), dtype=torch.uint8, device=dev)
+# G x (R, K, B): a ragged batch, and DRC(9,6,3)'s MSR-like (9, 27) NodeEncode
+# shape batched G = 9
+@pytest.mark.parametrize("g,r,k,b", [(5, 7, 9, 333), (9, 9, 27, 4099)])
+def test_kernel_batched_into_unaligned_view(dev, g, r, k, b):
+    rng = np.random.default_rng(12 + g)
+    m, x = _rand(rng, g, r, k), _rand(rng, g, k, b)
+    out = torch.zeros((g + 1, r, b), dtype=torch.uint8, device=dev)
+    before = gf_matmul_batched.launches
     gf_matmul_batched(torch.from_numpy(m).to(dev), torch.from_numpy(x).to(dev), out[1:])
-    for g in range(5):
-        np.testing.assert_array_equal(out[g + 1].cpu().numpy(), gf.gf_matmul(m[g], x[g]))
+    assert gf_matmul_batched.launches == before + 1
+    for i in range(g):
+        np.testing.assert_array_equal(out[i + 1].cpu().numpy(), gf.gf_matmul(m[i], x[i]))
     assert not bool(out[0].any())
+
+
+@pytest.mark.parametrize("fill", [0, 1, 0xFF])
+def test_kernel_constant_matrices(dev, fill):
+    """All-zero (every nibble skipped), identity-like 1 and 0xFF (every
+    nibble with all four bits) coefficients."""
+    rng = np.random.default_rng(fill)
+    m = np.full((1, 81, 162), fill, dtype=np.uint8)
+    x = torch.from_numpy(_rand(rng, 1, 162, 3000)).to(dev)
+    mt = torch.from_numpy(m).to(dev)
+    before = gf_matmul_batched.launches
+    got = gf_matmul_batched(mt, x)
+    assert gf_matmul_batched.launches == before + 1
+    assert torch.equal(got[0], gf_matmul_table(mt[0], x[0]))
 
 
 @pytest.mark.parametrize("spec", SPMD_CODES, ids=lambda s: "%s%d%d%d" % s)

@@ -27,7 +27,8 @@ def test_port_modules_are_found():
     for must in ("repro_torch.kernels.gf_matmul", "repro_torch.dist.collectives",
                  "repro_torch.train.checkpoint", "repro_torch.core.codes.msr_clay",
                  "repro_torch.kernels.flash_attention", "repro_torch.models.backbone",
-                 "repro_torch.serve.engine", "repro_torch.kernels.flash_ablation"):
+                 "repro_torch.serve.engine", "repro_torch.kernels.flash_ablation",
+                 "repro_torch.kernels.gf_ablation"):
         assert must in names
 
 
