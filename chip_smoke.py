@@ -42,14 +42,30 @@ drives the main path through the entry points a user calls, at the paper's
    c. serve: ``ServeEngine`` prefills 8 prompts of 128 tokens and generates
       32 tokens greedily, under ``obs.tracing``.
    One prefill forward and four decode steps also run under
-   ``torch.profiler``, for their device time by kernel.
+   ``torch.profiler``, for their device time by kernel;
+7. the process-group executor: phase 6's model is freed, then
+   ``repro_torch.dist.mesh_run`` spawns r*w = 9 ranks on this card over
+   ``gloo`` (the kernels were built before, each rank loads them), each with
+   its own payload, and runs ``spmd_repair(..., mesh=make_repair_mesh(3, 3))``
+   for the four codes at nodes 0 and n-1 and ``spmd_node_recovery`` of
+   DRC(9,6,3) over 4 stripes: the collector's output byte-equal to the stripe,
+   every rank's GF products on the card, the bytes sent between pods equal
+   to the plans' cross-rack bytes.  Its times are host-staged ``gloo`` times
+   on one card, not a network or NCCL figure;
+8. the evaluation layer: ``multi_failure_repair`` (DRC(9,6,3) with 2 and 3
+   failures, RS(9,6,3) with 3), ``CodeSwitcher.switch`` between RS(8,6,4)
+   and DRC(9,6,3), decoded back, byte-equal; ``FaultToleranceManager``
+   ``execute`` (repair and decode) and ``rescale`` to DRC(6,4,3) on phase
+   5's 256 MiB state, every leaf bit-equal; and the simulator's Table 3 row
+   of DRC(9,6,3), from host code.
 
 The build prints ptxas's report of every kernel (registers, spills) and the
 bf16 flash kernel's geometry (tiles, stages, dynamic shared memory, the
 registers ``setmaxnreg`` gives its producer and consumer warpgroups, and its
 TMA boxes), held equal to the wrapper's ``hopper_geometry``.  The
-GF kernel's launches are counted over phases 2-5 only, the flash kernel's
-over 6b-6c only.  Any mismatch or exception exits non-zero.  The last three
+GF kernel's launches are counted over phases 2-5 (``launches``, comparable
+with earlier runs) and per phase (``launches_by_phase``: 2-5, 7 summed over
+the ranks, 8), the flash kernel's over 6b-6c only.  Any mismatch or exception exits non-zero.  The last three
 lines of standard output are the kernels JSON line, the card's name and
 power limit, and the result line.
 """
@@ -75,6 +91,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.code_base import drc_min_cross_rack_blocks  # noqa: E402
 from repro_torch.core.codes import make_code  # noqa: E402
 from repro_torch.core.gf_torch import gf_matmul_table  # noqa: E402
+from repro_torch.core.multi_failure import CodeSwitcher, multi_failure_repair  # noqa: E402
+from repro_torch.dist import mesh_run  # noqa: E402
 from repro_torch.dist.collectives import (  # noqa: E402
     plan_to_spmd,
     spmd_node_recovery,
@@ -90,7 +108,14 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.gf_matmul import gf_matmul_batched  # noqa: E402
 from repro_torch.models import backbone  # noqa: E402
 from repro_torch.serve import ServeEngine, make_prefill_step  # noqa: E402
-from repro_torch.train.checkpoint import CheckpointManager, make_encode_step  # noqa: E402
+from repro_torch.storage import ClusterSim  # noqa: E402
+from repro_torch.train.checkpoint import (  # noqa: E402
+    CheckpointManager,
+    encode_state,
+    make_encode_step,
+    restore_state,
+)
+from repro_torch.train.fault_tolerance import FaultToleranceManager  # noqa: E402
 
 SEED = 0
 BLOCK_BYTES = 64 * 2**20  # the paper's HDFS block (examples/repair_layering_demo.py)
@@ -101,6 +126,11 @@ SHAPES = [
     (8, 27, 1024), (16, 64, 2048), (27, 162, 512), (3, 6, 17), (3, 6, 333),
 ]
 RECOVERY_STRIPES = 8
+# phase 7: the node recovery's stripes
+MESH_RECOVERY_STRIPES = 4
+# phase 8: failure sets of multi_failure_repair
+MULTI_FAILURES = [(("DRC", 9, 6, 3), [0, 8]), (("DRC", 9, 6, 3), [1, 4, 7]),
+                  (("RS", 9, 6, 3), [0, 4, 8])]
 DEVICE = "cuda"
 # NVIDIA H100 SXM data sheet (dense): HBM rate, int8 and bf16 tensor-core rates
 HBM_BYTES_PER_S = 3.35e12
@@ -390,6 +420,106 @@ def phase_checkpoint(gen: torch.Generator) -> dict:
               "checkpoint state is not bit-equal")
     return {"state_bytes": nbytes, "mode": report.mode,
             "cross_rack_blocks": report.cross_rack_blocks, "host_s": dt}
+
+
+def phase_mesh() -> dict:
+    """7: the process-group executor, 9 ranks on this card over gloo."""
+    cases = [mesh_run.Case(spec, failed, sub_bytes(make_code(*spec).alpha), seed=i)
+             for i, spec in enumerate(CODES) for failed in (0, spec[1] - 1)]
+    cases.append(mesh_run.Case(CODES[0], 0, sub_bytes(make_code(*CODES[0]).alpha),
+                               seed=len(CODES), stripes=MESH_RECOVERY_STRIPES))
+    with tempfile.TemporaryDirectory() as d:
+        rows = mesh_run.run(cases, workdir=d, device=DEVICE)
+    out = {}
+    for case, row in zip(cases, rows):
+        code = make_code(*case.code)
+        label = f"{code!r} node {case.failed}" + (f" x{case.stripes} stripes" if case.stripes
+                                                  else "")
+        check(row["equal"], f"mesh {label}: the collector's output differs")
+        check(row["others_zero"], f"mesh {label}: a rank other than the collector wrote")
+        check(all(c["cuda"] > 0 and c["ref"] == 0 for c in row["gf_calls"]),
+              f"mesh {label}: a rank's GF products did not run on the card: {row['gf_calls']}")
+        cross = sum(round(code.repair_plan(case.failed, rotation=s).traffic_blocks()[
+            "cross_rack_blocks"] * code.alpha) * case.sub for s in range(max(1, case.stripes)))
+        check(row["pod_sent_bytes"] == cross == row["counters"]["repair.bytes.cross_rack"],
+              f"mesh {label}: {row['pod_sent_bytes']} bytes sent between pods, the plans' "
+              f"cross-rack bytes are {cross}")
+        if case.stripes:
+            check(len(row["relayer_sets"]) > 1, f"mesh {label}: relayers did not rotate")
+        out[label] = {"ranks": row["world"], "sub": case.sub, "block_bytes": BLOCK_BYTES,
+                      "pod_sent_bytes": row["pod_sent_bytes"],
+                      "host_staged_bytes": row["counters"]["repair.bytes.host_staged"],
+                      "launches": row["launches"], "gloo_host_staged_ms": row["ms"]}
+    return out
+
+
+def phase_evaluation(gen: torch.Generator) -> dict:
+    """8: multi-failure repair, code switching, the FT manager's restore and
+    rescale on the card, and the simulator's Table 3 row."""
+    out = {}
+    for spec, failed in MULTI_FAILURES:
+        code = make_code(*spec)
+        sub = sub_bytes(code.alpha)
+        ka = code.k * code.alpha
+        stripe = torch.empty((code.n * code.alpha, sub), dtype=torch.uint8, device=DEVICE)
+        stripe[:ka] = rand_bytes((ka, sub), gen)
+        make_encode_step(code, sub, DEVICE)(stripe)
+        nodes = stripe.view(code.n, code.alpha, sub)
+        avail = {i: nodes[i] for i in range(code.n) if i not in failed}
+        got, report = multi_failure_repair(code, failed, avail)
+        torch.cuda.synchronize()
+        for f in failed:
+            check(torch.equal(got[f], nodes[f]), f"multi-failure {code!r} {failed}: node {f}")
+        del got
+        ms = cuda_ms(lambda: multi_failure_repair(code, failed, avail), reps=1)
+        out[f"multi_failure {code!r} {failed}"] = {
+            "helpers": report.helpers, "cross_rack_blocks": report.cross_rack_blocks, "ms": ms}
+        del stripe, nodes, avail
+        torch.cuda.empty_cache()
+    sw = CodeSwitcher()
+    blocks = rand_bytes((6, BLOCK_BYTES), gen)
+    for accesses in (0, 20):  # cold: RS(8,6,4); then hot: DRC(9,6,3)
+        for _ in range(accesses):
+            sw.record_access(0)
+        coded = sw.switch(0, blocks)
+        code = make_code(*sw.target_code(0))
+        data = code.decode({i: coded[i] for i in range(code.k)})
+        check(torch.equal(data.reshape(6, -1)[:, :BLOCK_BYTES], blocks),
+              f"code switch to {code!r}: decoded blocks differ")
+        del coded, data
+        ms = cuda_ms(lambda: sw.switch(0, blocks), reps=1)
+        out[f"switch to {code!r}"] = {"placement": sw.placement[0], "ms": ms}
+    del blocks
+    torch.cuda.empty_cache()
+    state = make_state(gen)
+    ckpt = encode_state(state, family="DRC", n=9, k=6, r=3, device=DEVICE)
+    mgr = FaultToleranceManager()
+
+    def state_equal(got: dict) -> bool:
+        return all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+            for a, b in zip(_leaves(got), _leaves(state)))
+
+    for lost in ([1], [0, 4, 8]):
+        got, report, action = mgr.execute(ckpt, state, lost)
+        torch.cuda.synchronize()
+        check(state_equal(got), f"ft execute {lost}: state is not bit-equal")
+        del got
+        ms = cuda_ms(lambda: mgr.execute(ckpt, state, lost), reps=1)
+        out[f"ft execute {lost}"] = {"kind": action.kind, "mode": report.mode, "ms": ms}
+    new = mgr.rescale(ckpt, state, n=6, k=4, r=3)
+    got, report = restore_state(new, state, available=set(range(6)) - {2})
+    torch.cuda.synchronize()
+    check(new.code_spec == ("DRC", 6, 4, 3) and state_equal(got),
+          "ft rescale: the re-encoded state is not bit-equal")
+    del got, new
+    ms = cuda_ms(lambda: mgr.rescale(ckpt, state, n=6, k=4, r=3), reps=1)
+    out["ft rescale DRC(9,6,3) -> DRC(6,4,3)"] = {"restore_mode": report.mode, "ms": ms}
+    del ckpt, state
+    torch.cuda.empty_cache()
+    out["simulator table3 DRC(9,6,3) 63 MiB 1 Gb/s (s, computed)"] = \
+        ClusterSim().table3_breakdown(make_code("DRC", 9, 6, 3), block_mib=63.0)
+    return out
 
 
 def flash_flops(b: int, sq: int, sk: int, h: int, d: int, causal: bool) -> int:
@@ -710,6 +840,27 @@ def main() -> int:
     phases["serve"] = {"init_s": init_s, "host_s": time.perf_counter() - t}
     print(f"[peak 6] {torch.cuda.max_memory_allocated()} bytes allocated; "
           f"{sum(p.numel() for p in model.parameters())} parameters")
+    del model
+    torch.cuda.empty_cache()  # free the model before nine ranks share the card
+
+    t = time.perf_counter()
+    mesh = phase_mesh()
+    phases["mesh"] = {"host_s": time.perf_counter() - t}
+    for label, row in mesh.items():
+        print(f"[7 mesh] {label}, 9 ranks over gloo on one card, host-staged, not a network "
+              f"or NCCL figure: {json.dumps(row)}")
+    mesh_launches = sum(row["launches"] for row in mesh.values())
+    check(mesh_launches > 0, "the ranks launched the GF kernel no time")
+    torch.cuda.reset_peak_memory_stats()
+    gf_matmul_batched.launches = 0
+    t = time.perf_counter()
+    ev = phase_evaluation(gen)
+    phases["evaluation"] = {"host_s": time.perf_counter() - t}
+    eval_launches = gf_matmul_batched.launches
+    check(eval_launches > 0, "the evaluation layer launched the GF kernel no time")
+    for label, row in ev.items():
+        print(f"[8 evaluation] {label}: {json.dumps(row)}")
+    print(f"[peak 8] {torch.cuda.max_memory_allocated()} bytes allocated")
 
     head = k1["timings"][0]  # DRC(9,6,3) full-width parity encode
     kernels = {"kernels": [{
@@ -718,6 +869,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/gf_matmul.cu",
         "replaces": "src/repro/kernels/gf_matmul.py:110",
         "launches": launches,
+        "launches_by_phase": {"2-5": launches, "7": mesh_launches, "8": eval_launches},
         "max_abs_err": kc.max_abs_err,
         "mismatched_bytes": kc.mismatched,
         "ms": head["ms"],

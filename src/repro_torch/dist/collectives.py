@@ -1,5 +1,5 @@
 """Lower a ``RepairPlan`` to one SPMD program over a ``(pod, node)`` mesh,
-and run it on an emulated mesh on one card.
+and run it on an emulated mesh on one card or over ``torch.distributed``.
 
 The paper's DoubleR workflow (§2.2) maps onto a device mesh with the
 rack structure made explicit: ``pod`` is the rack axis (r racks) and
@@ -13,36 +13,45 @@ rack structure made explicit: ``pod`` is the rack axis (r racks) and
   unit pool, and integer gather schedules for the cross-pod ship and
   the target decode.  Pure numpy, a copy of the reference's
   (``repro.dist.collectives``); tests hold the two equal.
-* :func:`make_spmd_repair` turns a spec into a function over the
-  node-major ``(n, alpha, sub)`` payload tensor, where device ``(p, j)``
-  is row ``p*w + j``:
+* the spec runs in one of two executors:
 
-  - **inner** — NodeEncode for all n devices is one batched kernel
-    launch; the ``node`` all-gather is a reshape to ``(r, w*nu, sub)``
-    (no bytes move); RelayerEncode is one batched launch over the
-    relayers;
-  - **cross** — each source pod's ``ppermute`` is an index copy of
-    exactly its ``cross_idx`` rows into the target pod's pool, so the
-    bytes copied equal ``plan.traffic_blocks()["cross_rack_blocks"] *
-    alpha * sub`` — the Eq. (3) bound;
-  - **decode** — the collector (device (target_pod, 0), output row
-    ``target_pod * w``) gathers its canonical unit order and applies the
-    decode matrix.
+  - :func:`make_spmd_repair`, the *emulated mesh*: the node-major
+    ``(n, alpha, sub)`` payload tensor on one device, row ``p*w + j``
+    standing for device ``(p, j)``.  NodeEncode for all n devices is one
+    batched kernel launch into a preallocated unit buffer (the ``node``
+    all-gather is a view of it); RelayerEncode reads the payload and the
+    pool in place and writes its units into the same buffer; the cross
+    ship and the decode's gather copy exactly the ``target_idx`` units
+    into the collector's decode input (one copy per run of consecutive
+    units, none when they already lie in order), whose cross-pod rows are
+    the Eq. (3) bytes;
+  - :func:`make_mesh_repair`, the *process-group executor*: one rank per
+    device of a 2-D ``DeviceMesh`` (``launch.mesh.make_repair_mesh``).
+    Each rank runs NodeEncode on its own payload, all-gathers over its
+    ``node`` group, runs RelayerEncode if it is a relayer, and sends each
+    unit the collector needs once, from the rank that produced it to the
+    collector ``(target_pod, 0)``: the bytes sent between pods equal
+    ``plan.traffic_blocks()["cross_rack_blocks"] * alpha * sub``.  The
+    collector decodes; every other rank returns zeros.
+
+  Either way output row ``target_pod * w`` (device ``(target_pod, 0)``)
+  is the reconstruction and every other row is zero, as in the reference.
 
 :func:`spmd_repair` runs one stripe; :func:`spmd_node_recovery` runs S
 stripes with the relayer role rotating per stripe (paper §5.2 load
-balancing).  Both self-instrument through ``repro_torch.obs`` with the
-same stage names / byte counters as ``core/repair.py``, so traced runs
-cross-check against the plan's symbolic accounting.  A multi-GPU
-backend over NCCL is later work.
+balancing).  Both take ``mesh=None`` for the emulated mesh.  Both
+self-instrument through ``repro_torch.obs`` with the same stage names /
+byte counters as ``core/repair.py``, so traced runs cross-check against
+the plan's symbolic accounting.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.core.code_base import ErasureCode
@@ -240,6 +249,74 @@ def plan_to_spmd(code: ErasureCode, plan: RepairPlan) -> SpmdRepairSpec:
     )
 
 
+def _pool2_sources(spec: SpmdRepairSpec) -> list[tuple[int, int]]:
+    """(pod, pool row) of every row of the collector's ``pool2``: its own
+    pod's pool, then each source pod's shipped rows in schedule order."""
+    rows = [(spec.target_pod, row) for row in range(spec.pool_rows)]
+    for q, dst, shipped in spec.permute_steps():
+        if q != dst:
+            rows.extend((q, row) for row in shipped)
+    return rows
+
+
+def _producer(spec: SpmdRepairSpec, pod: int, row: int) -> tuple[int, int]:
+    """The node that produced pool row ``row`` of pod ``pod``, and the
+    row's index in that node's [NodeEncode units ++ RelayerEncode units]."""
+    wnu = spec.w * spec.nu
+    if row < wnu:
+        return pod * spec.w + row // spec.nu, row % spec.nu
+    return pod * spec.w + (row - wnu) // spec.ru, spec.nu + (row - wnu) % spec.ru
+
+
+def _relayer_encode(x: torch.Tensor, y_pods: torch.Tensor, rel: np.ndarray,
+                    mats: np.ndarray, z: torch.Tensor) -> None:
+    """RelayerEncode of every relayer into ``z`` (relayers, ru, sub).
+
+    Each relayer's input is [own payload ++ its pod's NodeEncode pool], two
+    tensors here: its matrix is split into its own-payload columns and its
+    pool columns, the two products read both in place, and the second is
+    XORed into the first (``spmd_ablation`` times this against gathering
+    the input once)."""
+    alpha, w = x.shape[1], x.shape[0] // y_pods.shape[0]
+    own = np.ascontiguousarray(mats[:, :, :alpha])
+    pool = np.ascontiguousarray(mats[:, :, alpha:])
+    for i, node in enumerate(rel.tolist()):
+        ops.gf_matmul(own[i], x[node], out=z[i])
+        z[i].bitwise_xor_(ops.gf_matmul(pool[i], y_pods[node // w]))
+
+
+def _row_runs(pairs: Iterable[tuple[int, int]]) -> list[tuple[int, int, int]]:
+    """Runs of ``(destination row, source row)`` pairs that are consecutive
+    in both, as (destination row, source row, length)."""
+    runs: list[tuple[int, int, int]] = []
+    for dst, src in pairs:
+        if runs and runs[-1][0] + runs[-1][2] == dst and runs[-1][1] + runs[-1][2] == src:
+            runs[-1] = (runs[-1][0], runs[-1][1], runs[-1][2] + 1)
+        else:
+            runs.append((dst, src, 1))
+    return runs
+
+
+def _gather_rows(src: torch.Tensor, runs: list[tuple[int, int, int]],
+                 dst: torch.Tensor) -> None:
+    """``dst`` <- the rows of ``src`` that ``runs`` name: one copy per run of
+    consecutive rows (a copy moves bytes at the memory rate, where
+    ``index_select`` gathers byte by byte; ``src`` may lie on the host)."""
+    for d, s_, length in runs:
+        dst[d:d + length].copy_(src[s_:s_ + length])
+
+
+def _take_rows(src: torch.Tensor, runs: list[tuple[int, int, int]], rows: int) -> torch.Tensor:
+    """The ``rows`` rows that ``runs`` name, as a view of ``src`` where they
+    lie in order, else gathered into a new tensor."""
+    if len(runs) == 1:
+        _, s_, length = runs[0]
+        return src[s_:s_ + length]
+    dst = torch.empty((rows, src.shape[1]), dtype=src.dtype, device=src.device)
+    _gather_rows(src, runs, dst)
+    return dst
+
+
 def make_spmd_repair(
     spec: SpmdRepairSpec,
 ) -> Callable[..., torch.Tensor]:
@@ -249,47 +326,191 @@ def make_spmd_repair(
     Output row ``target_pod * w`` (device (target_pod, 0)) carries the
     reconstructed payload; every other row is zero, as in the reference.
     ``out``, when given, is a contiguous (n, alpha, sub) uint8 tensor that
-    is overwritten.  Each stage runs under its ``repro_torch.obs`` span.
+    is overwritten.  Each stage runs under its ``repro_torch.obs`` span,
+    and each call books the schedule's ``repair.bytes.*``.
+
+    The units live in one buffer: the n nodes' NodeEncode units, node-major
+    (``(n, nu, sub)``, so pod q's gathered pool is rows ``q*w*nu`` onwards),
+    then the relayers' units.  No other payload-sized buffer is made: the
+    decode input holds only the ``target_idx`` units, or is a view of the
+    buffer where they lie in order.
     """
-    r, w, nu, ru, alpha = spec.r, spec.w, spec.nu, spec.ru, spec.alpha
+    n, r, w, nu, ru, alpha = spec.n, spec.r, spec.w, spec.nu, spec.ru, spec.alpha
     rel = spec.rel_idx.astype(np.int64)
-    # Non-relayer rows of relayer_mats are zero (plan_to_spmd), so their
-    # RelayerEncode output is zero: computing only the rel_idx rows and
-    # leaving the other rows of the pool at zero gives the same pool.
+    # Non-relayer rows of relayer_mats are zero (plan_to_spmd): only the
+    # rel_idx rows are computed, and nothing reads the others.
     relayer_mats = np.ascontiguousarray(spec.relayer_mats[rel])
-    # declared schedule; plan_to_spmd never emits a (q, q) self-send
-    cross = [(q, rows) for q, dst, rows in spec.permute_steps() if q != dst]
+    rel_pos = {int(node): i for i, node in enumerate(rel)}
+
+    def unit_row(pod: int, row: int) -> int:
+        node, local = _producer(spec, pod, row)
+        if local < nu:
+            return node * nu + local
+        return n * nu + rel_pos[node] * ru + local - nu
+
+    pool2 = _pool2_sources(spec)
+    runs = _row_runs(enumerate(unit_row(*pool2[t]) for t in spec.target_idx))
+    permutes = sum(1 for q, dst, _ in spec.permute_steps() if q != dst)
+    collector = spec.target_pod * w
 
     def repair(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
-        if x.dtype != torch.uint8 or tuple(x.shape[:2]) != (spec.n, alpha):
-            raise ValueError(f"need ({spec.n}, {alpha}, sub) uint8, got {x.dtype} {tuple(x.shape)}")
+        if x.dtype != torch.uint8 or x.ndim != 3 or tuple(x.shape[:2]) != (n, alpha):
+            raise ValueError(f"need ({n}, {alpha}, sub) uint8, got {x.dtype} {tuple(x.shape)}")
+        if out is not None and (out.shape != x.shape or out.dtype != torch.uint8
+                                or not out.is_contiguous() or out.device != x.device):
+            raise ValueError(f"out must be a contiguous uint8 {tuple(x.shape)} tensor on {x.device}")
         dev, sub = x.device, x.shape[2]
+        _record_schedule(spec, sub)
         x = x.contiguous()
+        units = torch.empty((n * nu + len(rel) * ru, sub), dtype=torch.uint8, device=dev)
+        y = units[:n * nu].view(n, nu, sub)
         with obs.span("repair.inner", cat="repair", units=spec.inner_units):
-            # NodeEncode on every device at once, then all_gather over
-            # `node` == a view of the node-major result per pod
-            y = ops.gf_matmul_batched(spec.node_mats, x)  # (n, nu, sub)
-            pool = y.view(r, w * nu, sub)
+            # NodeEncode on every device at once; the all_gather over
+            # `node` is the pod-major view of its output
+            ops.gf_matmul_batched(spec.node_mats, x, out=y)
             if ru:
-                rel_t = torch.from_numpy(rel).to(dev)
-                inp = torch.cat([x.index_select(0, rel_t),
-                                 pool.index_select(0, rel_t // w)], dim=1)
-                z = ops.gf_matmul_batched(relayer_mats, inp)  # (relayers, ru, sub)
-                zf = torch.zeros((r, w, ru, sub), dtype=torch.uint8, device=dev)
-                zf[rel_t // w, rel_t % w] = z
-                pool = torch.cat([pool, zf.view(r, w * ru, sub)], dim=1)
+                _relayer_encode(x, y.view(r, w * nu, sub), rel, relayer_mats,
+                                units[n * nu:].view(len(rel), ru, sub))
         with obs.span("repair.cross", cat="repair", units=spec.cross_units,
-                      permutes=len(cross)):
-            # each source pod ships exactly its scheduled rows
-            recvs = [
-                pool[q].index_select(0, torch.tensor(rows, device=dev))
-                for q, rows in cross
-            ]
-            pool2 = torch.cat([pool[spec.target_pod], *recvs], dim=0)
+                      permutes=permutes):
+            # each source pod's scheduled units and the target pod's own
+            # land in the collector's decode input, in canonical order
+            target_in = _take_rows(units, runs, len(spec.target_idx))
         with obs.span("repair.decode", cat="repair", units=len(spec.target_idx)):
-            out = torch.zeros_like(x) if out is None else out.zero_()
-            target_in = pool2.index_select(0, torch.tensor(spec.target_idx, device=dev))
-            ops.gf_matmul(spec.decode, target_in, out=out[spec.target_pod * w])
+            out = torch.empty_like(x) if out is None else out
+            out[:collector].zero_()
+            out[collector + 1:].zero_()
+            ops.gf_matmul(spec.decode, target_in, out=out[collector])
+        return out
+
+    return repair
+
+
+# ------------------------------------------------- process-group executor
+def _staged(group: Any, t: torch.Tensor) -> bool:
+    """Whether a collective of ``group`` on ``t`` goes through host memory:
+    ``gloo`` takes host tensors, so a device payload is copied to the host
+    before the collective and back after it, explicitly and counted."""
+    return t.device.type != "cpu" and dist.get_backend(group) == "gloo"
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    obs.counter_add("repair.bytes.host_staged", t.numel(), direction="to_host")
+    return t.cpu()
+
+
+def _from_host(dst: torch.Tensor, host: torch.Tensor) -> None:
+    obs.counter_add("repair.bytes.host_staged", host.numel(), direction="from_host")
+    dst.copy_(host)
+
+
+def _all_gather_rows(src: torch.Tensor, dst: torch.Tensor, group: Any) -> None:
+    """``dst`` (size * rows, sub) <- every group member's ``src`` (rows, sub),
+    in group-rank order."""
+    size = dist.get_world_size(group)
+    if _staged(group, src):
+        host = torch.empty(dst.shape, dtype=dst.dtype)
+        dist.all_gather(list(host.chunk(size)), _to_host(src), group=group)
+        _from_host(dst, host)
+    else:
+        dist.all_gather(list(dst.chunk(size)), src, group=group)
+
+
+def _check_mesh(spec: SpmdRepairSpec, mesh: Any) -> None:
+    names, shape = tuple(mesh.mesh_dim_names or ()), tuple(mesh.shape)
+    if (names, shape) != (("pod", "node"), (spec.r, spec.w)):
+        raise ValueError(
+            f"mesh axes {dict(zip(names, shape))} of shape {shape} do not match the "
+            f"code's rack layout {{'pod': {spec.r}, 'node': {spec.w}}}"
+        )
+
+
+def make_mesh_repair(spec: SpmdRepairSpec, mesh: Any) -> Callable[..., torch.Tensor]:
+    """Build this rank's body ``repair(x, out=None)`` of the SPMD program
+    over ``mesh``, a ``DeviceMesh`` with dims ``("pod", "node")`` of sizes
+    (r, w) whose rank at (p, j) holds node ``p*w + j``.
+
+    ``x`` is this rank's (1, alpha, sub) uint8 shard on any device; the
+    result is (1, alpha, sub) on x's device: the reconstruction on the
+    collector (target_pod, 0), zeros elsewhere.  Every rank of the mesh
+    must call its body for the same spec.  The collector books the
+    schedule's ``repair.bytes.*``, once per call, so the counters summed
+    over ranks equal the emulated mesh's.
+    """
+    _check_mesh(spec, mesh)
+    w, nu, ru, alpha = spec.w, spec.nu, spec.ru, spec.alpha
+    p, j = (int(c) for c in mesh.get_coordinate())
+    me = p * w + j
+    ranks = mesh.mesh  # (r, w) global ranks
+    collector_rank = int(ranks[spec.target_pod, 0])
+    is_collector = (p, j) == (spec.target_pod, 0)
+    node_group = mesh.get_group("node")
+    relayer = me in spec.rel_idx.tolist()
+    # every unit of the decode input that is not in the collector's own
+    # NodeEncode pool is sent once, by the node that produced it
+    local: list[tuple[int, int]] = []  # (decode position, pool row)
+    ships: dict[int, list[tuple[int, int]]] = {}  # node -> [(position, its unit row)]
+    pool2 = _pool2_sources(spec)
+    for pos, t in enumerate(spec.target_idx):
+        pod, row = pool2[t]
+        if pod == spec.target_pod and row < w * nu:
+            local.append((pos, row))
+        else:
+            node, unit = _producer(spec, pod, row)
+            ships.setdefault(node, []).append((pos, unit))
+    local_runs = _row_runs(local)
+    # a message carries its producer's units in decode order
+    send_runs = {node: _row_runs(enumerate(unit for _, unit in units))
+                 for node, units in ships.items()}
+    recv_runs = {node: _row_runs((pos, i) for i, (pos, _) in enumerate(units))
+                 for node, units in ships.items()}
+    permutes = sum(1 for q, dst, _ in spec.permute_steps() if q != dst)
+
+    def repair(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+        if x.dtype != torch.uint8 or x.ndim != 3 or tuple(x.shape[:2]) != (1, alpha):
+            raise ValueError(f"need (1, {alpha}, sub) uint8, got {x.dtype} {tuple(x.shape)}")
+        dev, sub = x.device, x.shape[2]
+        if is_collector:
+            _record_schedule(spec, sub)
+        own = x[0].contiguous()
+        out = torch.empty_like(x) if out is None else out
+        # [own payload ++ the pod's NodeEncode pool]: the relayer's input,
+        # with the pool filled in place by the all-gather
+        inp = torch.empty((alpha + w * nu, sub), dtype=torch.uint8, device=dev)
+        pool = inp[alpha:]
+        with obs.span("repair.inner", cat="repair", units=spec.inner_units):
+            y = ops.gf_matmul(spec.node_mats[me], own)  # (nu, sub)
+            _all_gather_rows(y, pool, node_group)
+            units = y
+            if ru and relayer:
+                inp[:alpha].copy_(own)
+                units = torch.cat([y, ops.gf_matmul(spec.relayer_mats[me], inp)])
+        with obs.span("repair.cross", cat="repair", units=spec.cross_units,
+                      permutes=permutes):
+            if me in ships and not is_collector:
+                msg = _take_rows(units, send_runs[me], len(ships[me]))
+                dist.send(_to_host(msg) if _staged(None, msg) else msg, dst=collector_rank)
+            if is_collector:
+                target_in = torch.empty((len(spec.target_idx), sub), dtype=torch.uint8,
+                                        device=dev)
+                _gather_rows(pool, local_runs, target_in)
+                for node in sorted(ships):
+                    if node == me:
+                        _gather_rows(units, recv_runs[node], target_in)
+                        continue
+                    staged = _staged(None, target_in)
+                    buf = torch.empty((len(ships[node]), sub), dtype=torch.uint8,
+                                      device="cpu" if staged else dev)
+                    dist.recv(buf, src=int(ranks[node // w, node % w]))
+                    if staged:
+                        obs.counter_add("repair.bytes.host_staged", buf.numel(),
+                                        direction="from_host")
+                    _gather_rows(buf, recv_runs[node], target_in)
+        with obs.span("repair.decode", cat="repair", units=len(spec.target_idx)):
+            if is_collector:
+                ops.gf_matmul(spec.decode, target_in, out=out[0])
+            else:
+                out.zero_()
         return out
 
     return repair
@@ -310,47 +531,49 @@ def _record_schedule(spec: SpmdRepairSpec, sub_bytes: int) -> None:
 
 
 def spmd_repair(
-    code: ErasureCode, failed: int, payloads: torch.Tensor
+    code: ErasureCode, failed: int, payloads: torch.Tensor, mesh: Any = None
 ) -> tuple[torch.Tensor, SpmdRepairSpec]:
-    """Repair one stripe as a single SPMD program on the emulated mesh.
+    """Repair one stripe as a single SPMD program.
 
-    payloads: (n, alpha, sub) uint8, node-major (row i = node i's
-    payload; the failed row is ignored).  Returns the (n, alpha, sub)
-    output — row ``spec.target_pod * spec.w`` is the reconstruction —
-    plus the static spec.
+    Without ``mesh``, on the emulated mesh: payloads is (n, alpha, sub)
+    uint8, node-major (row i = node i's payload; the failed row is
+    ignored), and the (n, alpha, sub) output's row ``spec.target_pod *
+    spec.w`` is the reconstruction.  With a ``(pod, node)`` ``DeviceMesh``
+    (every rank calls this): payloads is this rank's (1, alpha, sub) shard
+    and the output is this rank's (1, alpha, sub) block.
     """
     spec = plan_to_spmd(code, code.repair_plan(failed))
     sub_bytes = int(payloads.shape[-1])
+    body = make_spmd_repair(spec) if mesh is None else make_mesh_repair(spec, mesh)
     with obs.span("repair.spmd", cat="repair", failed=failed,
                   family=spec.family, alpha=spec.alpha, sub_bytes=sub_bytes):
-        _record_schedule(spec, sub_bytes)
-        out = make_spmd_repair(spec)(payloads)
+        out = body(payloads)
     return out, spec
 
 
 def spmd_node_recovery(
-    code: ErasureCode, failed: int, payloads: torch.Tensor
+    code: ErasureCode, failed: int, payloads: torch.Tensor, mesh: Any = None
 ) -> tuple[torch.Tensor, list[SpmdRepairSpec]]:
-    """Recover a whole node — S stripes — on the emulated mesh.
+    """Recover a whole node — S stripes — as one SPMD program.
 
-    payloads: (S, n, alpha, sub) uint8.  Stripe s uses
+    payloads: (S, n, alpha, sub) uint8 on the emulated mesh, or this
+    rank's (S, 1, alpha, sub) with a ``DeviceMesh``.  Stripe s uses
     ``repair_plan(failed, rotation=s)`` so the relayer role rotates
     across the helper nodes of each remote rack (paper §5.2: node-level
-    repair load balance).  Returns ((S, n, alpha, sub), specs).
+    repair load balance).  Returns (output of payloads' shape, specs).
     """
     n_stripes = int(payloads.shape[0])
     specs = [plan_to_spmd(code, code.repair_plan(failed, rotation=s))
              for s in range(n_stripes)]
-    sub_bytes = int(payloads.shape[-1])
+    bodies = [make_spmd_repair(sp) if mesh is None else make_mesh_repair(sp, mesh)
+              for sp in specs]
     relayer_sets = {tuple(sp.rel_idx.tolist()) for sp in specs}
     with obs.span("repair.spmd_node_recovery", cat="repair", failed=failed,
                   family=specs[0].family if specs else "", stripes=n_stripes,
                   distinct_relayer_sets=len(relayer_sets)):
-        for spec in specs:
-            _record_schedule(spec, sub_bytes)
         out = torch.empty_like(payloads)
-        for s, spec in enumerate(specs):
-            make_spmd_repair(spec)(payloads[s], out=out[s])
+        for s, body in enumerate(bodies):
+            body(payloads[s], out=out[s])
     return out, specs
 
 

@@ -135,8 +135,11 @@ def decode_attention(
     cos, sin = rope_angles(pos, hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k_new = apply_rope(k_new, cos, sin)
-    cache["k"][:, position:position + 1] = k_new
-    cache["v"][:, position:position + 1] = v_new
+    # past the end of the cache the write lands on its last slot, as the
+    # reference's clamped ``dynamic_update_slice`` does
+    slot = min(position, cache["k"].shape[1] - 1)
+    cache["k"][:, slot:slot + 1] = k_new
+    cache["v"][:, slot:slot + 1] = v_new
     k, v = cache["k"], cache["v"]
     qg = q.reshape(b, 1, cfg.n_kv_heads, groups, hd) / math.sqrt(hd)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())

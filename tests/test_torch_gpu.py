@@ -16,16 +16,16 @@ import pytest
 import torch
 
 from repro_torch import configs
-from repro_torch.core import gf
+from repro_torch.core import gf, multi_failure
 from repro_torch.core.codes import make_code
 from repro_torch.core.gf_torch import gf_matmul_table
-from repro_torch.dist import collectives
-from repro_torch.kernels import ops
+from repro_torch.dist import collectives, mesh_run
+from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.gf_matmul import gf_matmul_batched
 from repro_torch.models import backbone
 from repro_torch.serve import ServeEngine, make_prefill_step
-from repro_torch.train import checkpoint
+from repro_torch.train import checkpoint, fault_tolerance
 
 pytestmark = pytest.mark.gpu
 
@@ -125,6 +125,92 @@ def test_checkpoint_roundtrip_on_card(dev, tmp_path):
                  (got["b"], state["b"])]:
         assert a.device.type == "cuda" and a.dtype == b.dtype
         assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("spec", SPMD_CODES, ids=lambda s: "%s%d%d%d" % s)
+def test_emulated_mesh_into_garbage_out_on_card(dev, spec):
+    code = make_code(*spec)
+    rng = np.random.default_rng(4)
+    data = _rand(rng, code.k * code.alpha, 4099)
+    stacked = torch.stack(code.encode(torch.from_numpy(data).to(dev)))
+    for failed in (0, code.n - 1):
+        sp = collectives.plan_to_spmd(code, code.repair_plan(failed))
+        out = torch.from_numpy(_rand(rng, *stacked.shape) | 1).to(dev)
+        before = gf_matmul_batched.launches
+        collectives.make_spmd_repair(sp)(stacked, out=out)
+        assert gf_matmul_batched.launches > before
+        row = sp.target_pod * sp.w
+        assert torch.equal(out[row], stacked[failed])
+        assert not bool(out[:row].any()) and not bool(out[row + 1:].any())
+
+
+def test_multi_failure_and_code_switch_on_card(dev):
+    code = make_code("DRC", 9, 6, 3)
+    rng = np.random.default_rng(5)
+    data = _rand(rng, code.k * code.alpha, 4096)
+    nodes = [gf.gf_matmul(code.node_coeffs(i), data) for i in range(code.n)]
+    for failed in ([0, 8], [1, 4, 7], [4]):
+        avail = {i: torch.from_numpy(nodes[i]).to(dev) for i in range(code.n) if i not in failed}
+        before = gf_matmul_batched.launches
+        got, report = multi_failure.multi_failure_repair(code, failed, avail)
+        assert gf_matmul_batched.launches > before
+        for f in failed:
+            assert got[f].device.type == dev.type
+            np.testing.assert_array_equal(got[f].cpu().numpy(), nodes[f])
+    sw = multi_failure.CodeSwitcher()
+    blocks = _rand(rng, 6, 12_289)
+    for accesses in (0, 20):
+        for _ in range(accesses):
+            sw.record_access(3)
+        before = gf_matmul_batched.launches
+        coded = sw.switch(3, torch.from_numpy(blocks).to(dev))
+        assert gf_matmul_batched.launches > before
+        target = make_code(*sw.target_code(3))
+        kb = np.zeros((6, -(-blocks.shape[1] // target.alpha) * target.alpha), np.uint8)
+        kb[:, :blocks.shape[1]] = blocks
+        want = [gf.gf_matmul(target.node_coeffs(i), kb.reshape(target.k * target.alpha, -1))
+                for i in range(target.n)]
+        for c, w in zip(coded, want):
+            np.testing.assert_array_equal(c.cpu().numpy(), w)
+
+
+def test_fault_tolerance_execute_and_rescale_on_card(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    state = {"w": torch.randn((301, 77), generator=g, device=dev),
+             "m": torch.randn((64, 33), generator=g, device=dev).bfloat16()}
+    ckpt = checkpoint.encode_state(state, family="DRC", n=9, k=6, r=3, device=dev)
+    mgr = fault_tolerance.FaultToleranceManager()
+
+    def equal(got):
+        return all(torch.equal(got[k].reshape(-1).view(torch.uint8),
+                               state[k].reshape(-1).view(torch.uint8)) for k in state)
+
+    for lost, kind in (([2], "repair"), ([0, 5, 8], "decode")):
+        before = gf_matmul_batched.launches
+        got, report, action = mgr.execute(ckpt, state, lost)
+        assert action.kind == kind and gf_matmul_batched.launches > before
+        assert got["w"].device.type == dev.type and equal(got)
+    before = gf_matmul_batched.launches
+    new = mgr.rescale(ckpt, state, n=6, k=4, r=3)
+    assert gf_matmul_batched.launches > before and new.payloads[0].device.type == dev.type
+    got, report = checkpoint.restore_state(new, state, available={0, 1, 3, 4, 5})
+    assert report.mode == "repair" and equal(got)
+
+
+def test_mesh_executor_on_card_over_gloo(dev, tmp_path):
+    """Nine ranks on this card over ``gloo``, payloads staged through the host."""
+    build.build_all(["gf_matmul"])  # once, before the ranks load it
+    cases = [mesh_run.Case(("DRC", 9, 6, 3), 0, 4096), mesh_run.Case(("RS", 9, 6, 3), 8, 4099),
+             mesh_run.Case(("DRC", 9, 5, 3), 8, 4096, stripes=3)]
+    for case, row in zip(cases, mesh_run.run(cases, workdir=str(tmp_path), device="cuda")):
+        code = make_code(*case.code)
+        assert row["equal"] and row["others_zero"], case
+        assert all(calls["cuda"] > 0 and calls["ref"] == 0 for calls in row["gf_calls"]), case
+        assert row["counters"]["repair.bytes.host_staged"] > 0
+        cross = sum(round(code.repair_plan(case.failed, rotation=s).traffic_blocks()[
+            "cross_rack_blocks"] * code.alpha) * case.sub for s in range(max(1, case.stripes)))
+        assert row["pod_sent_bytes"] == cross == row["counters"]["repair.bytes.cross_rack"]
 
 
 # tests/test_flash_attention.py SWEEP: b, sq, sk, h, kvh, d, causal; plus ragged

@@ -28,7 +28,11 @@ def test_port_modules_are_found():
                  "repro_torch.train.checkpoint", "repro_torch.core.codes.msr_clay",
                  "repro_torch.kernels.flash_attention", "repro_torch.models.backbone",
                  "repro_torch.serve.engine", "repro_torch.kernels.flash_ablation",
-                 "repro_torch.kernels.gf_ablation"):
+                 "repro_torch.kernels.gf_ablation", "repro_torch.core.multi_failure",
+                 "repro_torch.train.fault_tolerance", "repro_torch.storage.simulator",
+                 "repro_torch.storage.costmodel", "repro_torch.core.analysis.bandwidth",
+                 "repro_torch.core.analysis.reliability", "repro_torch.launch.mesh",
+                 "repro_torch.dist.mesh_run", "repro_torch.dist.spmd_ablation"):
         assert must in names
 
 

@@ -124,3 +124,49 @@ def test_spmd_node_recovery_rotates_relayers():
     assert span.attrs["distinct_relayer_sets"] == len(rel_sets)
     assert tr.counter_value("repair.bytes.cross_rack") == sum(
         sp.traffic_bytes(64)["cross_rack"] for sp in specs)
+
+
+@pytest.mark.parametrize("spec", SPMD_CODES, ids=IDS)
+def test_spmd_repair_into_garbage_out_zeroes_every_other_row(spec):
+    port = make_code(*spec)
+    sub = 96
+    nodes = _codeword(r_make_code(*spec), sub, 5)
+    stacked = torch.from_numpy(np.stack(nodes))
+    for failed in (0, port.n - 1):
+        sp = tcoll.plan_to_spmd(port, port.repair_plan(failed))
+        out = torch.from_numpy(
+            np.random.default_rng(failed).integers(1, 256, size=stacked.shape, dtype=np.uint8))
+        got = tcoll.make_spmd_repair(sp)(stacked, out=out)
+        assert got.data_ptr() == out.data_ptr()
+        row = sp.target_pod * sp.w
+        np.testing.assert_array_equal(out[row].numpy(), nodes[failed])
+        assert not np.delete(out.numpy(), row, axis=0).any()
+
+
+@pytest.mark.parametrize("spec", [("DRC", 9, 6, 3), ("DRC", 9, 5, 3), ("RS", 9, 6, 3)], ids=IDS)
+def test_spmd_ablation_variants_equal_the_shipped_executor(spec):
+    from repro_torch.dist import spmd_ablation
+
+    port = make_code(*spec)
+    nodes = torch.from_numpy(np.stack(_codeword(r_make_code(*spec), 64, 9)))
+    for failed in (0, port.n - 1):
+        sp = tcoll.plan_to_spmd(port, port.repair_plan(failed))
+        want = tcoll.make_spmd_repair(sp)(nodes)
+        for name in spmd_ablation.VARIANTS:
+            with spmd_ablation.variant(name):
+                got = tcoll.make_spmd_repair(sp)(nodes, out=torch.full_like(nodes, 0xA5))
+            assert torch.equal(got, want), name
+    assert tcoll._relayer_encode is not spmd_ablation.relayer_encode_gather
+
+
+def test_row_runs_and_take_rows():
+    rows = [3, 4, 5, 27, 28, 9]
+    runs = tcoll._row_runs(enumerate(rows))
+    assert runs == [(0, 3, 3), (3, 27, 2), (5, 9, 1)]
+    assert tcoll._row_runs([(0, 9), (2, 10), (3, 11)]) == [(0, 9, 1), (2, 10, 2)]
+    src = torch.arange(40 * 3, dtype=torch.int32).reshape(40, 3)
+    assert torch.equal(tcoll._take_rows(src, runs, len(rows)), src[rows])
+    one = tcoll._row_runs(enumerate(range(9, 21)))
+    assert one == [(0, 9, 12)]
+    view = tcoll._take_rows(src, one, 12)
+    assert view.data_ptr() == src[9].data_ptr() and torch.equal(view, src[9:21])

@@ -92,3 +92,18 @@ def test_sample_token():
     draws = sample_token(g, logits * 100, temperature=1.0)
     assert draws.dtype == torch.int32 and draws.tolist()[1] == 0
     assert set(draws.tolist()) <= {0, 1, 2, 3}
+
+
+def test_decode_past_the_end_of_the_kv_cache_matches_reference():
+    """Past ``kv_len`` the new key and value land on the cache's last slot,
+    as the reference's clamped ``dynamic_update_slice`` writes them."""
+    cfg_r, cfg_t, params, model = _pair("starcoder2_3b")
+    prompts = np.array([[1, 2, 3], [4, 5, 6]], dtype=np.int32)
+    ref = JaxEngine(cfg_r, params, batch=2, kv_len=4)
+    port = ServeEngine(cfg_t, model, batch=2, kv_len=4, device="cpu")
+    ref.prefill(jnp.asarray(prompts))
+    port.prefill(torch.from_numpy(prompts))
+    want = np.asarray(ref.generate(3))
+    got = port.generate(3)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert port.position == ref.position == 6
