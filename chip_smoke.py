@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/H100 port's repair data path on one card.
+"""Smoke run of the PyTorch/H100 port on one card: the repair data path,
+serving and training.
 
     python3 chip_smoke.py
 
@@ -57,7 +58,22 @@ drives the main path through the entry points a user calls, at the paper's
    and DRC(9,6,3), decoded back, byte-equal; ``FaultToleranceManager``
    ``execute`` (repair and decode) and ``rescale`` to DRC(6,4,3) on phase
    5's 256 MiB state, every leaf bit-equal; and the simulator's Table 3 row
-   of DRC(9,6,3), from host code.
+   of DRC(9,6,3), from host code;
+9. train, through ``init_train_state``, ``make_train_step`` and
+   ``SyntheticStream``, 2 x 4096 tokens a step in 2 microbatches, AdamW
+   state in f32, WSD schedule:
+   a. StarCoder2-3B at full width and depth (``remat="full"``, KV chunks of
+      512): a warm-up step with a hook on every parameter's gradient (each
+      finite and nonzero), 3 steps timed by the host clock and CUDA events,
+      one under ``torch.profiler``; every loss finite and the launcher's own
+      success test (``launch.train.training_ok``) passed; peak memory;
+   b. the same widths cut to 2 layers (at 30 layers the checkpoint's
+      serialized state and stripe do not fit beside the live state): 2
+      steps, ``CheckpointManager.save`` with DRC(9,6,3), 2 steps, ``node_2.bin``
+      deleted, ``load`` through the layered repair, the state copied back in
+      place and byte-equal to the saved one, cross-rack blocks equal to the
+      plan's, every GF product on the card; the 2 steps replayed.
+   Neither may launch the flash kernel (it has no backward).
 
 The build prints ptxas's report of every kernel (registers, spills) and the
 bf16 flash kernel's geometry (tiles, stages, dynamic shared memory, the
@@ -65,12 +81,14 @@ registers ``setmaxnreg`` gives its producer and consumer warpgroups, and its
 TMA boxes), held equal to the wrapper's ``hopper_geometry``.  The
 GF kernel's launches are counted over phases 2-5 (``launches``, comparable
 with earlier runs) and per phase (``launches_by_phase``: 2-5, 7 summed over
-the ranks, 8), the flash kernel's over 6b-6c only.  Any mismatch or exception exits non-zero.  The last three
+the ranks, 8, 9), the flash kernel's over 6b-6c (and over 9, where it must
+be 0).  Any mismatch or exception exits non-zero.  The last three
 lines of standard output are the kernels JSON line, the card's name and
 power limit, and the result line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -106,14 +124,26 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     hopper_geometry,
 )
 from repro_torch.kernels.gf_matmul import gf_matmul_batched  # noqa: E402
+from repro_torch.launch.train import training_ok  # noqa: E402
 from repro_torch.models import backbone  # noqa: E402
 from repro_torch.serve import ServeEngine, make_prefill_step  # noqa: E402
 from repro_torch.storage import ClusterSim  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    DataConfig,
+    ScheduleConfig,
+    SyntheticStream,
+    TrainConfig,
+    init_train_state,
+    make_train_step,
+    train_state,
+)
 from repro_torch.train.checkpoint import (  # noqa: E402
     CheckpointManager,
+    copy_state_,
     encode_state,
     make_encode_step,
     restore_state,
+    state_to_bytes,
 )
 from repro_torch.train.fault_tolerance import FaultToleranceManager  # noqa: E402
 
@@ -164,6 +194,17 @@ PREFILL_RTOL = 0.05
 FLASH_ROUNDS, FLASH_REPS = 5, 20
 # phase 1 timing: the five GF products alternate, ROUNDS rounds of REPS launches
 GF_ROUNDS, GF_REPS = 5, 10
+# phase 9: StarCoder2-3B trained at full width, 2 x 4096 tokens a step (its
+# 4096 window) in 2 microbatches, every block rematerialised, KV chunks of 512
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_CHUNK = 2, 4096, 2, 512
+TRAIN_TIMED_STEPS = 3
+# at the launcher's 3e-4 the fourth update of 9a overshot on the card (loss
+# 10.19 -> 11.29): with a 2-step warm-up, 1e-4 keeps the loss falling
+TRAIN_LR = 1e-4
+# 9b: full widths, depth cut to 2 layers: at 30 layers ``encode_state``'s
+# serialized state (31.8 GB) and stripe (47.7 GB) do not fit beside the live
+# training state (~51 GB) in 80 GB
+CKPT_LAYERS = 2
 
 
 def check(cond: bool, what: str) -> None:
@@ -637,32 +678,56 @@ def phase_flash(gen: torch.Generator, cfg, batch: int, seq: int,
             "ragged": ragged}
 
 
-def profile_device(fn, steps: int) -> dict:
-    """Device time of ``steps`` calls of ``fn`` under ``torch.profiler``: the
-    kernels' summed time against the host clock of the window, the number of
-    kernels, and the five largest kernels by time.  Reports no device time
-    where the profiler saw none."""
-    fn()
+def profile_device(fn, steps: int, *, warmup: bool = True, top: int = 5, ops: int = 0) -> dict:
+    """Device time of ``steps`` calls of ``fn`` under ``torch.profiler``, after
+    one call outside it (``warmup``): the kernels' summed time against the
+    host clock of the window, the number of kernels, and the ``top`` largest
+    kernels by time.  With ``ops``, also the device time of the ``ops``
+    largest aten ops by name, and by name and input shapes (recording the
+    shapes costs host time: the window's busy share then reads low).
+    Reports no device time where the profiler saw none."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    # host ops only where they are read: without them the trace reads faster
+    acts = [torch.profiler.ProfilerActivity.CUDA] + (
+        [torch.profiler.ProfilerActivity.CPU] if ops else [])
+    with torch.profiler.profile(activities=acts, record_shapes=ops > 0) as prof:
         t = time.perf_counter()
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
     by_name: dict[str, float] = {}
+    # aten ops (host events) by the device time of their own kernels, and calls
+    by_op: dict[str, list[float]] = {}
+    by_op_shape: dict[tuple[str, str], list[float]] = {}
     n = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             n += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        elif ops and e.self_device_time_total > 0:
+            ms = e.self_device_time_total / 1e3
+            for table, key in ((by_op, e.name), (by_op_shape, (e.name, str(e.input_shapes)[:120]))):
+                acc = table.setdefault(key, [0.0, 0])
+                acc[0] += ms
+                acc[1] += 1
     busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return {"steps": steps, "wall_ms_per_step": wall_ms / steps,
-            "device_ms_per_step": busy_ms / steps, "kernels_per_step": n / steps,
-            "device_busy_share": busy_ms / wall_ms,
-            "top_ms_per_step": [[name[:80], ms / steps] for name, ms in top]}
+    largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "device_ms_per_step": busy_ms / steps, "kernels_per_step": n / steps,
+           "device_busy_share": busy_ms / wall_ms,
+           "top_ms_per_step": [[name[:80], ms / steps] for name, ms in largest]}
+    if ops:
+        for label, table in (("top_ops_ms_per_step", by_op),
+                             ("top_op_shapes_ms_per_step", by_op_shape)):
+            rows = sorted(table.items(), key=lambda kv: -kv[1][0])[:ops]
+            out[label] = [[*(key if isinstance(key, tuple) else (key,)), ms / steps, calls / steps]
+                          for key, (ms, calls) in rows]
+    out["summary_s"] = time.perf_counter() - t  # host time to stop and read the trace
+    return out
 
 
 def phase_prefill(gen: torch.Generator, cfg, model, batch: int, seq: int, *,
@@ -729,6 +794,159 @@ def phase_serve(gen: torch.Generator, cfg, model, batch: int, prompt: int, new: 
             "position": eng.position, "counters": got,
             "prefill_ms_per_step": prefill_s * 1e3 / prompt,
             "decode_ms_per_step": gen_s * 1e3 / new, "decode_profile": prof}
+
+
+def train_config(steps: int) -> TrainConfig:
+    """Phase 9's training: the launcher's WSD schedule over ``steps`` (warm-up
+    of 2 steps) at peak ``TRAIN_LR``, in ``TRAIN_MICRO`` microbatches."""
+    return TrainConfig(schedule=ScheduleConfig(kind="wsd", peak_lr=TRAIN_LR, warmup_steps=2,
+                                               total_steps=steps),
+                       microbatches=TRAIN_MICRO, attn_chunk=TRAIN_CHUNK)
+
+
+def timed_step(step_fn, model, opt, batch, step: int) -> dict:
+    """One train step timed by the host clock to its synchronised end and by
+    CUDA events; the loss, lr and grad norm read after it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    start.record()
+    _, _, metrics = step_fn(model, opt, batch, step)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3
+    return {"step": step, "host_ms": host_ms, "cuda_ms": start.elapsed_time(end),
+            **{k: float(metrics[k]) for k in ("loss", "lr", "grad_norm")}}
+
+
+def phase_train(gen: torch.Generator, cfg, batch: int, seq: int) -> dict:
+    """9a: ``init_train_state`` and ``make_train_step`` at the config's full
+    width and depth: a warm-up step with a hook on every parameter's
+    gradient, profiled by aten op and input shape, ``TRAIN_TIMED_STEPS``
+    timed steps and one under ``torch.profiler`` for the busy share, all on
+    the stream's first batch, so that the launcher's success test reads the
+    updates and not the spread between batches."""
+    steps = 2 + TRAIN_TIMED_STEPS
+    tcfg = train_config(steps)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model, opt = init_train_state(gen, cfg, tcfg, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    data = SyntheticStream(cfg, DataConfig(seed=SEED, batch=batch, seq=seq), device=DEVICE).batch_at(0)
+    step_fn = make_train_step(cfg, tcfg)
+    flash_before = flash_attention.launches
+    # the first step's gradients, one norm per parameter and microbatch
+    norms: dict[str, list[torch.Tensor]] = {}
+    hooks = [p.register_hook(lambda g, name=name: norms.setdefault(name, []).append(
+        torch.linalg.vector_norm(g.float()))) for name, p in model.named_parameters()]
+    rows = []
+    try:  # the warm-up step also gives the device time by op and shape
+        ops_prof = profile_device(lambda: rows.append(timed_step(step_fn, model, opt, data, 0)),
+                                  steps=1, warmup=False, top=0, ops=12)
+    finally:
+        for h in hooks:
+            h.remove()
+    missing = [name for name, _ in model.named_parameters() if len(norms.get(name, ())) != TRAIN_MICRO]
+    check(not missing, f"9a: no gradient in every microbatch for {missing[:5]}")
+    per_param = {name: torch.stack(v) for name, v in norms.items()}
+    bad = [name for name, v in per_param.items()
+           if not bool(torch.isfinite(v).all()) or float(v.sum()) == 0.0]
+    check(not bad, f"9a: first-step gradients not finite or all zero for {bad[:5]}")
+    least = min(per_param.items(), key=lambda kv: float(kv[1].sum()))
+    for step in range(1, 1 + TRAIN_TIMED_STEPS):
+        row = timed_step(step_fn, model, opt, data, step)
+        rows.append(row)
+    last = steps - 1
+    prof = profile_device(lambda: rows.append(timed_step(step_fn, model, opt, data, last)),
+                          steps=1, warmup=False, top=12)
+    losses = [r["loss"] for r in rows]
+    check(all(math.isfinite(x) for x in losses), f"9a: losses {losses}")
+    check(training_ok(losses), f"9a: the launcher's success test fails on {losses}")
+    check(flash_attention.launches == flash_before,
+          "9a: the train step launched the flash kernel (it has no backward)")
+    timed = rows[1:1 + TRAIN_TIMED_STEPS]
+    host_ms = float(np.median([r["host_ms"] for r in timed]))
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params, "batch": batch,
+           "seq": seq, "microbatches": TRAIN_MICRO, "remat": cfg.remat,
+           "attn_chunk": TRAIN_CHUNK, "init_s": init_s, "steps": rows,
+           "step_host_ms_median": host_ms,
+           "step_cuda_ms_median": float(np.median([r["cuda_ms"] for r in timed])),
+           "tokens_per_s": batch * seq / host_ms * 1e3,
+           "grad_norm_least": [least[0], float(least[1].sum())],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "max_memory_reserved": torch.cuda.max_memory_reserved(),
+           "profile": prof,
+           "warmup_ops": {k: ops_prof[k] for k in ("device_ms_per_step", "top_ops_ms_per_step",
+                                                    "top_op_shapes_ms_per_step", "summary_s")}}
+    del model, opt, step_fn, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_checkpoint(gen: torch.Generator, cfg, batch: int, seq: int) -> dict:
+    """9b: train, save with DRC(9,6,3), train on, lose ``node_2.bin``, load
+    through the layered repair, copy the restored state in place and replay
+    the steps after the save."""
+    tcfg = train_config(4)
+    model, opt = init_train_state(gen, cfg, tcfg, device=DEVICE)
+    stream = SyntheticStream(cfg, DataConfig(seed=SEED, batch=batch, seq=seq), device=DEVICE)
+    step_fn = make_train_step(cfg, tcfg)
+    first, replay = [], []
+    for step in range(2):
+        first.append(timed_step(step_fn, model, opt, stream.batch_at(step), step))
+    with tempfile.TemporaryDirectory() as d, obs.tracing("9b") as tr:
+        mgr = CheckpointManager(d, family="DRC", n=9, k=6, r=3, keep=1, device=DEVICE)
+        live = train_state(model, opt)
+        saved = state_to_bytes(live)[0]  # a copy: the leaves are concatenated
+        state_bytes = saved.numel()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt = mgr.save(2, live)
+        torch.cuda.synchronize()
+        save_s = time.perf_counter() - t
+        stripe_bytes = sum(p.numel() for p in ckpt.payloads.values())
+        del ckpt
+        for step in (2, 3):
+            first.append(timed_step(step_fn, model, opt, stream.batch_at(step), step))
+        os.remove(os.path.join(mgr._stepdir(2), "node_2.bin"))
+        gf_save = sum(sp.dur_us for sp in tr.spans_named("kernel.gf_matmul")) / 1e3
+        t = time.perf_counter()
+        restored, step, report = mgr.load(live)
+        copy_state_(live, restored)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        del restored
+        gf_load = sum(sp.dur_us for sp in tr.spans_named("kernel.gf_matmul")) / 1e3 - gf_save
+        spans = {name: [sp.dur_us / 1e3 for sp in tr.spans_named(name)] for name in (
+            "ckpt.encode", "ckpt.save", "ckpt.load", "ckpt.restore")}
+        calls = {path: tr.counter_value("kernel.gf_matmul.calls", path=path)
+                 for path in ("cuda", "ref")}
+    plan_cross = make_code("DRC", 9, 6, 3).repair_plan(2).traffic_blocks()["cross_rack_blocks"]
+    check(step == 2 and report.mode == "repair", f"9b: load gave step {step}, {report}")
+    check(report.cross_rack_blocks == plan_cross,
+          f"9b: cross-rack blocks {report.cross_rack_blocks} != the plan's {plan_cross}")
+    check(torch.equal(state_to_bytes(live)[0], saved), "9b: the restored state is not byte-equal")
+    check(calls["cuda"] > 0 and calls["ref"] == 0, f"9b: GF products by path {calls}")
+    del saved
+    for step in (2, 3):
+        replay.append(timed_step(step_fn, model, opt, stream.batch_at(step), step))
+    losses = [r["loss"] for r in first + replay]
+    check(all(math.isfinite(x) for x in losses), f"9b: losses {losses}")
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, opt, live, step_fn
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+            "state_bytes": state_bytes, "stripe_bytes": stripe_bytes,
+            "mode": report.mode, "cross_rack_blocks": report.cross_rack_blocks,
+            "plan_cross_rack_blocks": plan_cross, "gf_calls": calls,
+            "save_host_s": save_s, "save_gf_device_ms": gf_save,
+            "load_host_s": load_s, "load_gf_device_ms": gf_load, "spans_ms": spans,
+            "losses_first_pass": [r["loss"] for r in first[2:]],
+            "losses_replayed": [r["loss"] for r in replay],
+            "step_host_ms": [r["host_ms"] for r in first + replay]}
 
 
 def ptxas_report(log: str) -> list[dict]:
@@ -861,6 +1079,26 @@ def main() -> int:
     for label, row in ev.items():
         print(f"[8 evaluation] {label}: {json.dumps(row)}")
     print(f"[peak 8] {torch.cuda.max_memory_allocated()} bytes allocated")
+    del ev
+    torch.cuda.empty_cache()
+
+    train_cfg = get_config(SERVE_ARCH)
+    check(train_cfg.remat == "full", f"{train_cfg.name} trains with remat {train_cfg.remat}")
+    gf_matmul_batched.launches = 0
+    flash_before = flash_attention.launches
+    t = time.perf_counter()
+    tr9 = phase_train(gen, train_cfg, TRAIN_BATCH, TRAIN_SEQ)
+    phases["train"] = {"host_s": time.perf_counter() - t}
+    print(f"[9a train] {smi}: {json.dumps(tr9)}")
+    t = time.perf_counter()
+    ck9 = phase_train_checkpoint(gen, dataclasses.replace(train_cfg, n_layers=CKPT_LAYERS),
+                                 TRAIN_BATCH, TRAIN_SEQ)
+    phases["train_checkpoint"] = {"host_s": time.perf_counter() - t}
+    print(f"[9b checkpoint] {smi}: {json.dumps(ck9)}")
+    train_launches = gf_matmul_batched.launches
+    check(train_launches > 0, "the checkpoint loop launched the GF kernel no time")
+    train_flash_launches = flash_attention.launches - flash_before
+    check(train_flash_launches == 0, "phase 9 launched the flash kernel")
 
     head = k1["timings"][0]  # DRC(9,6,3) full-width parity encode
     kernels = {"kernels": [{
@@ -869,7 +1107,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/gf_matmul.cu",
         "replaces": "src/repro/kernels/gf_matmul.py:110",
         "launches": launches,
-        "launches_by_phase": {"2-5": launches, "7": mesh_launches, "8": eval_launches},
+        "launches_by_phase": {"2-5": launches, "7": mesh_launches, "8": eval_launches,
+                              "9": train_launches},
         "max_abs_err": kc.max_abs_err,
         "mismatched_bytes": kc.mismatched,
         "ms": head["ms"],
@@ -889,6 +1128,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28",
         "launches": flash_launches,
+        "launches_by_phase": {"6b-6c": flash_launches, "9": train_flash_launches},
         "max_abs_err": fl["max_abs_err"],
         "rel_fro_err": fl["rel_fro_err"],
         "max_err_over_scale": fl["max_err_over_scale"],

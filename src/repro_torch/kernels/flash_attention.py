@@ -165,12 +165,22 @@ def flash_attention(
 
     Causal masking keeps ``row >= col`` with positions from 0 for both q
     and k.  q head ``h`` reads kv head ``h // (H / kvH)``.
+
+    The kernel is a forward only (so is the TPU kernel): its output has no
+    autograd edge.  On a CUDA tensor it raises where autograd would record
+    the call; the differentiable path is the chunked attention
+    (``models.attention.attention(..., use_flash=False)``).
     """
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "the flash-attention kernel has no backward: under autograd take the "
+            "chunked path (models.attention.attention(..., use_flash=False)) or "
+            "call it under torch.no_grad()")
     if q.numel() == 0:
         return q.new_empty(q.shape)
     if k.shape[1] == 0:

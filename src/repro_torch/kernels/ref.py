@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.gf_torch import gf_matmul_table
 
@@ -81,6 +82,23 @@ def gf_matmul_bitsliced(m: torch.Tensor | np.ndarray, x: torch.Tensor) -> torch.
     return out.view(r, groups * 32)[:, :b].to(x.device)
 
 
+def _stream_block(m, l, acc, qf, kb, vb, k0: int, causal: bool, p_dtype):
+    """One kv block of the recurrence: (m, l, acc) -> (m, l, acc)."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb)
+    if causal:
+        rows = torch.arange(qf.shape[1], device=qf.device)[:, None]
+        cols = k0 + torch.arange(kb.shape[1], device=qf.device)[None, :]
+        s = torch.where(rows >= cols, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    p = torch.exp(s - m_new)
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1, keepdim=True)
+    if p_dtype is not None:
+        p = p.to(p_dtype).float()
+    acc = acc * corr + torch.einsum("bhgqk,bkhd->bhgqd", p, vb)
+    return m_new, l, acc
+
+
 def streaming_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -99,6 +117,9 @@ def streaming_attention(
     ``acc / max(l, 1e-30)``.  ``p_dtype`` rounds P to that dtype before the
     PV product (``l`` sums the unrounded P); None keeps it in f32.  GQA
     groups ride on the G axis: repeated K/V is never built.
+    Where autograd records, each block runs under ``torch.utils.checkpoint``,
+    so that backward recomputes a block's scores from its inputs and the
+    carry instead of keeping them (the reference's ``jax.checkpoint(body)``).
     """
     b, sq, kvh, g, d = q.shape
     sk = k.shape[1]
@@ -106,20 +127,14 @@ def streaming_attention(
     m = torch.full((b, kvh, g, sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, kvh, g, sq, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, kvh, g, sq, d), dtype=torch.float32, device=q.device)
-    rows = torch.arange(sq, device=q.device)[:, None]
+    remat = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     for k0 in range(0, sk, block):
         kb, vb = kf[:, k0:k0 + block], vf[:, k0:k0 + block]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb)
-        if causal:
-            cols = k0 + torch.arange(kb.shape[1], device=q.device)[None, :]
-            s = torch.where(rows >= cols, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp(s - m_new)
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1, keepdim=True)
-        if p_dtype is not None:
-            p = p.to(p_dtype).float()
-        acc = acc * corr + torch.einsum("bhgqk,bkhd->bhgqd", p, vb)
-        m = m_new
+        if remat:
+            m, l, acc = torch.utils.checkpoint.checkpoint(
+                _stream_block, m, l, acc, qf, kb, vb, k0, causal, p_dtype,
+                use_reentrant=False)
+        else:
+            m, l, acc = _stream_block(m, l, acc, qf, kb, vb, k0, causal, p_dtype)
     out = acc / torch.clamp(l, min=1e-30)
     return out.permute(0, 3, 1, 2, 4)

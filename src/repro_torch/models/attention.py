@@ -7,7 +7,9 @@ The PyTorch counterpart of ``repro.models.attention``.
   kernel masks its own ragged edge, so the JAX package's gate (S and Sk
   multiples of 256, a Pallas block constraint) is not copied.  On the CPU,
   or with ``use_flash=False``, it runs ``_chunked_attention``, the streaming
-  softmax over KV chunks in plain PyTorch.
+  softmax over KV chunks in plain PyTorch.  The kernel is a forward only,
+  so training takes the chunked path (``use_flash=False``), as the
+  reference's differentiable path does.
 * Decode consumes a KV cache laid out (batch, kv_len, kv_heads, head_dim).
   The cache is updated in place (slice assignment at ``position``), where
   JAX builds a new one with ``dynamic_update_slice``.
@@ -36,7 +38,11 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int):
 
     q: (B, Sq, kvH, G, D); k/v: (B, Sk, kvH, D).  Walks Sk in equal chunks
     (``ref.streaming_attention``); q is scaled in its own dtype, and P is
-    cast to v's dtype before the PV product, as in the reference.
+    cast to v's dtype before the PV product, as in the reference.  The
+    products run in f32 on q/k/v upcast from their dtype: the reference's
+    ``preferred_element_type=f32`` products on the same values.  Under
+    autograd each chunk is checkpointed, as the reference's
+    ``jax.checkpoint(body)``: backward recomputes a chunk's scores.
     """
     d = q.shape[-1]
     sk = k.shape[1]

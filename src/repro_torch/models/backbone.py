@@ -14,8 +14,16 @@ the reference; ``decode_step`` updates it in place.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from . import attention as attn
 from .common import DTYPES, Embedding, Norm, constrain
@@ -50,6 +58,36 @@ def decoder_block(p: DecoderBlock, cfg: ArchConfig, x, *, chunk=512, use_flash=N
         out = x + f * cfg.residual_scale
     out = constrain(out, "batch", "seq", "embed")
     return out, aux
+
+
+# "dots": the products with no batch dims (the dense layers' ``x @ w``, which
+# dispatch to ``mm``) are kept, all else is recomputed, as the reference's
+# ``checkpoint_dots_with_no_batch_dims``; attention's batched products
+# (``bmm``) are recomputed
+_KEPT_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_products(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _KEPT_PRODUCTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` under the config's rematerialisation policy (the reference's
+    ``_remat``): ``none`` runs it as it is, ``full`` keeps only its inputs
+    and recomputes the rest in backward, ``dots`` keeps the dense products."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _keep_products)
+    elif cfg.remat == "full":
+        context_fn = noop_context_fn
+    else:
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+    def run(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn, **kwargs)
+
+    return run
 
 
 class Backbone(nn.Module):
@@ -101,11 +139,15 @@ def _embed_inputs(p: Backbone, cfg: ArchConfig, batch: dict) -> torch.Tensor:
 
 def forward_hidden(p: Backbone, cfg: ArchConfig, batch: dict, *, chunk: int = 512,
                    use_flash: bool | None = None):
-    """Backbone forward up to the final norm (pre-logits).  Returns (x, aux)."""
+    """Backbone forward up to the final norm (pre-logits).  Returns (x, aux).
+
+    Under autograd each block runs under ``cfg.remat`` (``_remat``); with
+    grad off (serving) the blocks run as they are."""
     x = _embed_inputs(p, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = _remat(decoder_block, cfg) if torch.is_grad_enabled() else decoder_block
     for bp in p.blocks:
-        x, a = decoder_block(bp, cfg, x, chunk=chunk, use_flash=use_flash)
+        x, a = block(bp, cfg, x, chunk=chunk, use_flash=use_flash)
         aux = aux + a
     return p.ln_f(x), aux
 

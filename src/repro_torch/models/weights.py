@@ -1,4 +1,5 @@
-"""Carry the JAX package's parameters across into the port's ``Backbone``.
+"""Carry the JAX package's parameters, and its AdamW state, across into the
+port's ``Backbone`` and optimizer state.
 
 ``params_from_jax(cfg, np_tree)`` takes the reference's parameter tree with
 every leaf already a numpy array (``jax.tree.map(np.asarray, params)`` of
@@ -66,3 +67,17 @@ def params_from_jax(cfg: ArchConfig, np_tree: dict, *, device="cuda") -> Backbon
                                  f"want {param.dtype} {tuple(param.shape)}")
             param.copy_(src)
     return model
+
+
+def opt_state_from_jax(cfg: ArchConfig, np_opt_state: dict, *, device="cuda") -> dict:
+    """The reference's AdamW state (``m``/``v`` trees shaped like the params,
+    and ``count``, every leaf a numpy array) as the port's
+    ``{"m": {name: tensor}, "v": {name: tensor}, "count"}``: the same name map
+    as ``params_from_jax``, the stacked layer axis split, bf16 bits copied as
+    they are."""
+    out = {}
+    for key in ("m", "v"):
+        out[key] = {name: _to_tensor(leaf).to(device)
+                    for name, leaf in named_arrays(cfg, np_opt_state[key]).items()}
+    out["count"] = torch.from_numpy(np.array(np_opt_state["count"], dtype=np.int32)).to(device)
+    return out

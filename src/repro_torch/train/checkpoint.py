@@ -102,6 +102,22 @@ def bytes_to_state(buf: torch.Tensor, meta: list[dict], like: Any) -> Any:
     return _unflatten(like, leaves)
 
 
+@torch.no_grad()
+def copy_state_(live: Any, restored: Any) -> None:
+    """Copy a restored state's leaves into the live state's, in place (a
+    training job keeps its parameters and optimizer state objects; the
+    restore returns fresh leaves).  The two trees must match leaf for leaf
+    in shape and dtype."""
+    dst, src = _flatten(live), _flatten(restored)
+    if len(dst) != len(src):
+        raise ValueError(f"state has {len(dst)} leaves, the restored one {len(src)}")
+    for i, (a, b) in enumerate(zip(dst, src)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(f"leaf {i}: live {a.dtype} {tuple(a.shape)}, "
+                             f"restored {b.dtype} {tuple(b.shape)}")
+        a.copy_(b)
+
+
 # ------------------------------------------------------------------ encoding
 @dataclass
 class EncodedCheckpoint:

@@ -1,0 +1,86 @@
+"""AdamW with configurable state dtype (bf16 states for the 100B+ MoEs).
+
+The PyTorch counterpart of ``repro.train.optimizer``.  The state mirrors the
+parameters by name: ``{"m": {name: tensor}, "v": {name: tensor}, "count"}``,
+with the names of ``model.named_parameters()``, so it serializes into the
+same erasure-coded checkpoint as the parameters.  ``adamw_update`` writes
+the new parameters and moments in place, under ``torch.no_grad``, with the
+reference's arithmetic: every step in f32, the result cast back to each
+parameter's and moment's dtype.  ``opt_state_axes`` waits for the sharding
+port.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Mapping
+
+import torch
+from torch import nn
+
+_STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    state_dtype: str = "float32"
+    grad_clip: float = 1.0
+
+
+def init_opt_state(params: Mapping[str, torch.Tensor] | nn.Module, cfg: AdamWConfig) -> dict:
+    """Zero moments in ``cfg.state_dtype`` beside each parameter (of a module,
+    or of a name -> tensor mapping), and a zero int32 step count on the
+    parameters' device."""
+    named = dict(params.named_parameters() if isinstance(params, nn.Module) else params)
+    dt = _STATE_DTYPES[cfg.state_dtype]
+    device = next(iter(named.values())).device if named else "cpu"
+    return {
+        "m": {name: torch.zeros(p.shape, dtype=dt, device=p.device) for name, p in named.items()},
+        "v": {name: torch.zeros(p.shape, dtype=dt, device=p.device) for name, p in named.items()},
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32 (0-d tensor)."""
+    leaves = tree.values() if isinstance(tree, Mapping) else tree
+    sq = [torch.sum(torch.square(x.float())) for x in leaves]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+@torch.no_grad()
+def adamw_update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
+                 state: dict, lr, cfg: AdamWConfig):
+    """One AdamW step with global-norm clipping, in place.
+
+    ``params`` and ``grads`` map names to tensors, the names of the state's
+    moments; ``lr`` is a float or a 0-d f32 tensor.  Returns
+    ``(params, state, grad_norm)``: the same objects, updated.
+    """
+    if params.keys() != grads.keys():
+        raise ValueError(f"grads do not match the parameters: "
+                         f"{sorted(params.keys() ^ grads.keys())}")
+    state["count"] += 1
+    count = state["count"].float()
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    f32 = dict(dtype=torch.float32, device=count.device)
+    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, **f32), count)
+    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, **f32), count)
+    lr = torch.as_tensor(lr, dtype=torch.float32)
+    for name, p in params.items():
+        m, v = state["m"][name], state["v"][name]
+        g = grads[name].float() * scale
+        m_new = m.float() * cfg.b1 + g * (1 - cfg.b1)
+        v_new = v.float() * cfg.b2 + g * (1 - cfg.b2) * g
+        del g
+        step = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+        step += p.float() * cfg.weight_decay
+        m.copy_(m_new)
+        v.copy_(v_new)
+        del m_new, v_new
+        p.copy_(p.float() - lr * step)
+    return params, state, gnorm

@@ -25,7 +25,16 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels.gf_matmul import gf_matmul_batched
 from repro_torch.models import backbone
 from repro_torch.serve import ServeEngine, make_prefill_step
-from repro_torch.train import checkpoint, fault_tolerance
+from repro_torch.train import (
+    DataConfig,
+    SyntheticStream,
+    TrainConfig,
+    checkpoint,
+    fault_tolerance,
+    init_train_state,
+    make_train_step,
+    train_state,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -305,3 +314,74 @@ def test_serve_engine_on_card(dev):
     assert out.shape == (2, 4) and out.device.type == "cuda"
     assert int(out.min()) >= 0 and int(out.max()) < cfg.padded_vocab and eng.position == 12
 
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_kernel_refuses_autograd(dev, which):
+    """The kernel has no backward: where autograd would record the call it
+    raises, naming the chunked path, rather than return an output with no
+    gradient edge.  Under ``no_grad`` the same tensors launch it."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((1, 128, 2, 64), generator=g, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    {"q": q, "k": k, "v": v}[which].requires_grad_(True)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="chunked"):
+        flash_attention(q, k, v)
+    assert flash_attention.launches == before
+    with torch.no_grad():
+        out = flash_attention(q, k, v)
+    assert flash_attention.launches == before + 1 and not out.requires_grad
+    torch.testing.assert_close(out, flash_attention_ref(q.detach(), k.detach(), v.detach()),
+                               atol=3e-2, rtol=0)
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_on_card_matches_cpu(dev, microbatches):
+    """One f32 train step of the StarCoder2-3B smoke config, from the same
+    state and batch, on the card and on the CPU: parameters within atol 2e-5
+    (``tests/test_train.py``'s step tolerance), the loss within rtol 1e-5.
+    The step takes the chunked attention, never the flash kernel."""
+    cfg = dataclasses.replace(configs.get_smoke("starcoder2_3b"), param_dtype="float32",
+                              remat="full")
+    tcfg = TrainConfig(microbatches=microbatches, attn_chunk=16, xent_tile=128)
+    cpu_model, cpu_opt = init_train_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                                          device="cpu")
+    model, opt = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, tcfg,
+                                  device="cuda")
+    checkpoint.copy_state_(train_state(model, opt), train_state(cpu_model, cpu_opt))
+    data = DataConfig(seed=4, batch=4, seq=64)
+    before = flash_attention.launches
+    _, _, m_gpu = make_train_step(cfg, tcfg)(
+        model, opt, SyntheticStream(cfg, data, device="cuda").batch_at(5), 5)
+    _, _, m_cpu = make_train_step(cfg, tcfg)(
+        cpu_model, cpu_opt, SyntheticStream(cfg, data, device="cpu").batch_at(5), 5)
+    assert flash_attention.launches == before
+    np.testing.assert_allclose(float(m_gpu["loss"]), float(m_cpu["loss"]), rtol=1e-5)
+    for (name, p), (_, want) in zip(model.named_parameters(), cpu_model.named_parameters()):
+        assert p.is_cuda
+        np.testing.assert_allclose(p.detach().cpu().numpy(), want.detach().numpy(), atol=2e-5,
+                                   err_msg=name)
+
+
+def test_bf16_train_step_on_card_has_a_gradient_for_every_parameter(dev):
+    """The smoke config widened to head dim 32 in bf16 under each remat policy:
+    every parameter gets a finite, nonzero gradient, and the losses agree."""
+    base = dataclasses.replace(configs.get_smoke("starcoder2_3b"), d_model=192)
+    batch = SyntheticStream(base, DataConfig(batch=2, seq=256), device="cuda").batch_at(0)
+    losses = {}
+    for remat in ("none", "full", "dots"):
+        cfg = dataclasses.replace(base, remat=remat)
+        model, opt = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg,
+                                      TrainConfig(attn_chunk=64), device="cuda")
+        norms = {}
+        hooks = [p.register_hook(lambda g, name=name: norms.__setitem__(
+            name, float(torch.linalg.vector_norm(g.float())))) for name, p in model.named_parameters()]
+        _, _, m = make_train_step(cfg, TrainConfig(attn_chunk=64))(model, opt, batch, 0)
+        for h in hooks:
+            h.remove()
+        assert set(norms) == {name for name, _ in model.named_parameters()}
+        assert all(np.isfinite(v) and v > 0 for v in norms.values()), norms
+        losses[remat] = float(m["loss"])
+    assert losses["full"] == pytest.approx(losses["none"], rel=1e-3)
+    assert losses["dots"] == pytest.approx(losses["none"], rel=1e-3)

@@ -32,7 +32,11 @@ def test_port_modules_are_found():
                  "repro_torch.train.fault_tolerance", "repro_torch.storage.simulator",
                  "repro_torch.storage.costmodel", "repro_torch.core.analysis.bandwidth",
                  "repro_torch.core.analysis.reliability", "repro_torch.launch.mesh",
-                 "repro_torch.dist.mesh_run", "repro_torch.dist.spmd_ablation"):
+                 "repro_torch.dist.mesh_run", "repro_torch.dist.spmd_ablation",
+                 "repro_torch.train.schedule", "repro_torch.train.optimizer",
+                 "repro_torch.train.xent", "repro_torch.train.data",
+                 "repro_torch.train.train_step", "repro_torch.launch.train",
+                 "repro_torch.examples.train_e2e", "repro_torch.examples.elastic_recovery"):
         assert must in names
 
 
