@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one card: the repair data path,
-serving and training.
+serving every model family, and training.
 
     python3 chip_smoke.py
 
@@ -73,7 +73,24 @@ drives the main path through the entry points a user calls, at the paper's
       deleted, ``load`` through the layered repair, the state copied back in
       place and byte-equal to the saved one, cross-rack blocks equal to the
       plan's, every GF product on the card; the 2 steps replayed.
-   Neither may launch the flash kernel (it has no backward).
+   Neither may launch the flash kernel (it has no backward);
+10. the model families beyond the dense one, after phase 9 has freed the
+   training state, each at its published width in bf16 with random seeded
+   weights, freed before the next: 10a dbrx-132b (16 experts, top-4; depth
+   cut to 4 of 40 layers), 10b zamba2-1.2b (38 Mamba2 layers and the shared
+   block's 6 calls), 10c xlstm-125m (9 mLSTM, 3 sLSTM), 10d internvl2-1b
+   (256 seeded patch embeddings ahead of the text), 10e whisper-small (1500
+   seeded frames through the encoder, 448 text tokens).  For each: the
+   flash kernel against its plain version at the family's new attention
+   shapes, timed in turns with SDPA; ``make_prefill_step`` on 2 x 4096
+   positions through the kernel (its launches per forward counted), held
+   against the chunked plain path, timed by CUDA events (median of 3, each
+   after a warm-up); ``ServeEngine`` at batch 8 on 32-token prompts plus 32
+   greedy tokens (whisper with ``state["enc"]`` set from the encoder), its
+   logits at the last prompt position held against the full forward's, and
+   its decode step under ``torch.profiler``; peak memory.  10a also counts
+   the (token, choice) pairs the prefill dropped over capacity and checks
+   that decode at batch 8 drops none.
 
 The build prints ptxas's report of every kernel (registers, spills) and the
 bf16 flash kernel's geometry (tiles, stages, dynamic shared memory, the
@@ -81,7 +98,7 @@ registers ``setmaxnreg`` gives its producer and consumer warpgroups, and its
 TMA boxes), held equal to the wrapper's ``hopper_geometry``.  The
 GF kernel's launches are counted over phases 2-5 (``launches``, comparable
 with earlier runs) and per phase (``launches_by_phase``: 2-5, 7 summed over
-the ranks, 8, 9), the flash kernel's over 6b-6c (and over 9, where it must
+the ranks, 8, 9), the flash kernel's over 6b-6c and 10a-e (and over 9, where it must
 be 0).  Any mismatch or exception exits non-zero.  The last three
 lines of standard output are the kernels JSON line, the card's name and
 power limit, and the result line.
@@ -125,7 +142,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 )
 from repro_torch.kernels.gf_matmul import gf_matmul_batched  # noqa: E402
 from repro_torch.launch.train import training_ok  # noqa: E402
-from repro_torch.models import backbone  # noqa: E402
+from repro_torch.models import backbone, mlp  # noqa: E402
 from repro_torch.serve import ServeEngine, make_prefill_step  # noqa: E402
 from repro_torch.storage import ClusterSim  # noqa: E402
 from repro_torch.train import (  # noqa: E402
@@ -205,6 +222,32 @@ TRAIN_LR = 1e-4
 # serialized state (31.8 GB) and stripe (47.7 GB) do not fit beside the live
 # training state (~51 GB) in 80 GB
 CKPT_LAYERS = 2
+# phase 10: the families beyond the dense one at their published widths, one
+# at a time: (label, arch, layers or None for the config's).  dbrx's depth is
+# cut to 4 of 40 layers: 40 are about 131.6e9 parameters, 263 GB in bf16; 4
+# are about 14.3e9, 28.5 GB.
+FAMILIES = [("10a", "dbrx-132b", 4), ("10b", "zamba2-1.2b", None),
+            ("10c", "xlstm-125m", None), ("10d", "internvl2-1b", None),
+            ("10e", "whisper-small", None)]
+FAMILY_BATCH, FAMILY_LEN = 2, 4096  # prefill: 2 x 4096 positions (vlm: 256 + 3840)
+WHISPER_TEXT = 448  # Whisper's text context: the decoder's prefill length
+FAMILY_TIMED = 3  # prefill: median of 3 timed forwards, each after a warm-up
+ENGINE_BATCH, ENGINE_PROMPT, ENGINE_NEW = 8, 32, 32
+# the engine's logits at the last prompt position against the full forward's
+# there: the engine feeds the prompt through decode steps (a KV cache with an
+# f32 softmax, the xLSTM and Mamba2 recurrences with f32 states), the forward
+# takes the flash kernel and the chunked SSD/mLSTM forms, which round
+# activations to bf16 in other places; allow 5% of the largest logit, as 6b
+# (MoE: against a forward at a capacity that drops nothing, since the
+# forward's capacity counts all 8 x 32 tokens and decode's only 8).  xlstm:
+# 10%: the chunked mLSTM rounds its (q.k) scores and decay-weighted products
+# to bf16 where the decode keeps f32 memories, and the reference's own bf16
+# decode departs from its forward by as much as the port's does
+# (tests/test_torch_families.py::test_bf16_decode_gap_matches_reference)
+ENGINE_RTOL = {"ssm": 0.10}
+ENGINE_RTOL_DEFAULT = 0.05
+# the seeded visual and frame embeddings are drawn as the token embedding table is
+STUB_EMBED_STD = 0.02
 
 
 def check(cond: bool, what: str) -> None:
@@ -949,6 +992,196 @@ def phase_train_checkpoint(gen: torch.Generator, cfg, batch: int, seq: int) -> d
             "step_host_ms": [r["host_ms"] for r in first + replay]}
 
 
+def flash_per_forward(cfg) -> int:
+    """Flash launches in one full-sequence forward of ``cfg``'s family."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":  # the shared block, once per whole segment
+        return cfg.n_layers // (cfg.shared_attn_every or cfg.n_layers)
+    if cfg.family == "audio":  # encoder self-attention, decoder self and cross
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def family_flash_shapes(cfg) -> list[tuple]:
+    """The attention shapes phase 10 gives the flash kernel: (b, sq, sk, h,
+    kvh, d, causal)."""
+    h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.family == "ssm":
+        return []
+    if cfg.family == "audio":
+        f = cfg.encoder_seq
+        return [(FAMILY_BATCH, f, f, h, kvh, d, False),  # encoder
+                (FAMILY_BATCH, WHISPER_TEXT, WHISPER_TEXT, h, kvh, d, True),  # decoder self
+                (FAMILY_BATCH, WHISPER_TEXT, f, h, kvh, d, False),  # cross, prefill
+                (ENGINE_BATCH, 1, f, h, kvh, d, False)]  # cross, one decode step
+    return [(FAMILY_BATCH, FAMILY_LEN, FAMILY_LEN, h, kvh, d, True)]
+
+
+def family_flash_case(gen: torch.Generator, shape: tuple) -> dict:
+    """The kernel against its plain version at one of phase 10's shapes
+    (bf16), then timed in turns with SDPA."""
+    b, sq, sk, h, kvh, d, causal = shape
+    q = torch.randn((b, sq, h, d), generator=gen, device=DEVICE).bfloat16()
+    k = torch.randn((b, sk, kvh, d), generator=gen, device=DEVICE).bfloat16()
+    v = torch.randn((b, sk, kvh, d), generator=gen, device=DEVICE).bfloat16()
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    e = flash_errors(got, q, k, v, causal)
+    check_flash(e, FLASH_ATOL[torch.bfloat16], f"phase 10 at {shape}")
+    timing = flash_timing(q, k, v, causal)
+    return {**e, **{key: timing[key] for key in (
+        "shape", "causal", "ms", "ms_spread", "tflops", "bound_ms", "bound_by", "bound_share",
+        "library_ms", "kernel_over_library")}}
+
+
+def family_inputs(gen: torch.Generator, cfg, batch: int, positions: int) -> dict:
+    """A prefill batch of ``positions`` positions: token ids, and the
+    family's stub inputs drawn from the seed (vlm: ``vision_tokens`` patch
+    embeddings ahead of the text; audio: ``encoder_seq`` frames, and
+    ``WHISPER_TEXT`` tokens)."""
+    dtype = torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
+
+    def embeds(n):
+        return (torch.randn((batch, n, cfg.d_model), generator=gen, device=DEVICE)
+                * STUB_EMBED_STD).to(dtype)
+
+    text = positions
+    out = {}
+    if cfg.family == "vlm":
+        out["vis_embeds"] = embeds(cfg.vision_tokens)
+        text = positions - cfg.vision_tokens
+    if cfg.family == "audio":
+        out["frames"] = embeds(cfg.encoder_seq)
+        text = min(positions, WHISPER_TEXT)
+    out["tokens"] = torch.randint(0, cfg.vocab, (batch, text), generator=gen, device=DEVICE)
+    return out
+
+
+def phase_family(gen: torch.Generator, cfg) -> dict:
+    """10a-e: one family at full width: its new attention shapes through the
+    flash kernel against the plain version; the prefill through the kernel,
+    held against the chunked plain path; ``ServeEngine`` at batch 8, its
+    logits at the last prompt position held against the full forward's.
+    Returns the results and the flash launches of the main path (the
+    prefill, the plain-path comparison excluded, and the engine)."""
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = backbone.init_model(cfg, generator=gen, device=DEVICE)
+    torch.cuda.synchronize()
+    out = {"arch": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+           "params": sum(p.numel() for p in model.parameters()),
+           "init_s": time.perf_counter() - t}
+    out["flash_cases"] = [family_flash_case(gen, shape) for shape in family_flash_shapes(cfg)]
+
+    batch = family_inputs(gen, cfg, FAMILY_BATCH, FAMILY_LEN)
+    step = make_prefill_step(cfg, device=DEVICE)
+    flash_attention.launches = 0  # the main path's launches from here
+    with obs.tracing("prefill") as tr:
+        logits = step(model, batch)
+        torch.cuda.synchronize()
+    per_forward = flash_attention.launches
+    check(per_forward == flash_per_forward(cfg),
+          f"{cfg.name}: prefill launched the flash kernel {per_forward} times, not "
+          f"{flash_per_forward(cfg)}")
+    check(logits.shape == (FAMILY_BATCH, cfg.padded_vocab), f"{cfg.name}: prefill logits "
+          f"{tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits.float()).all()), f"{cfg.name}: prefill logits not finite")
+    out["prefill"] = {"batch": FAMILY_BATCH,
+                      **{key: list(val.shape) for key, val in batch.items()},
+                      "flash_launches_per_forward": per_forward,
+                      **time_in_turns({"prefill": lambda: step(model, batch)},
+                                      FAMILY_TIMED, 1)["prefill"]}
+    if cfg.moe:  # the combine's bf16 index_add_ is order-dependent: rerun and compare
+        again = step(model, batch)
+        out["prefill"]["rerun_bit_equal"] = bool(torch.equal(again, logits))
+        out["prefill"]["rerun_max_abs_diff"] = float((again.float() - logits.float()).abs().max())
+        del again
+        out["prefill"]["moe_pairs"] = {
+            "routed": tr.counter_value("moe.pairs.routed"),
+            "dropped": tr.counter_value("moe.pairs.dropped"),
+            "capacity": mlp.capacity(cfg.moe, FAMILY_BATCH * batch["tokens"].shape[1],
+                                     cfg.moe.top_k)}
+    launches = flash_attention.launches
+    if per_forward:  # the same forward through the chunked plain path
+        t = time.perf_counter()
+        plain = make_prefill_step(cfg, device=DEVICE, use_flash=False)(model, batch)
+        torch.cuda.synchronize()
+        diff = float((logits.float() - plain.float()).abs().max())
+        scale = float(plain.float().abs().max())
+        check(diff <= PREFILL_RTOL * scale, f"{cfg.name}: prefill logits differ from the "
+              f"plain path by {diff} (max |logit| {scale})")
+        out["prefill"].update({"plain_path_ms": (time.perf_counter() - t) * 1e3,
+                               "max_abs_diff": diff, "max_abs_logit": scale,
+                               "top1_agreement": float(
+                                   (logits.argmax(-1) == plain.argmax(-1)).float().mean())})
+        del plain
+    del logits, batch
+    flash_attention.launches = launches
+
+    prompts = torch.randint(0, cfg.vocab, (ENGINE_BATCH, ENGINE_PROMPT), generator=gen,
+                            device=DEVICE)
+    eng = ServeEngine(cfg, model, batch=ENGINE_BATCH, kv_len=ENGINE_PROMPT + ENGINE_NEW + 8,
+                      device=DEVICE)
+    full_batch = {"tokens": prompts}
+    if cfg.family == "audio":  # the caller sets the encoder's output, as the reference
+        full_batch["frames"] = family_inputs(gen, cfg, ENGINE_BATCH, 1)["frames"]
+        with torch.no_grad():
+            eng.state["enc"] = backbone._run_encoder(model, cfg, full_batch["frames"])
+    before = flash_attention.launches
+    with obs.tracing("serve") as tr:
+        t = time.perf_counter()
+        last = eng.prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        t = time.perf_counter()
+        toks = eng.generate(ENGINE_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+    check(bool(torch.isfinite(last).all()), f"{cfg.name}: engine logits not finite")
+    check(toks.shape == (ENGINE_BATCH, ENGINE_NEW) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.padded_vocab, f"{cfg.name}: engine tokens")
+    check(eng.position == ENGINE_PROMPT + ENGINE_NEW, f"{cfg.name}: position {eng.position}")
+    steps = ENGINE_PROMPT + ENGINE_NEW
+    per_step = (flash_attention.launches - before) / steps
+    want_step = cfg.n_layers if cfg.family == "audio" else 0  # the cross-attention
+    check(per_step == want_step, f"{cfg.name}: {per_step} flash launches per decode step, "
+          f"not {want_step}")
+    out["engine"] = {"batch": ENGINE_BATCH, "prompt": ENGINE_PROMPT, "new": ENGINE_NEW,
+                     "prefill_ms_per_step": prefill_s * 1e3 / ENGINE_PROMPT,
+                     "decode_ms_per_step": gen_s * 1e3 / ENGINE_NEW,
+                     "flash_launches_per_step": per_step}
+    if cfg.moe:
+        dropped = tr.counter_value("moe.pairs.dropped")
+        check(dropped == 0, f"{cfg.name}: decode at batch {ENGINE_BATCH} dropped {dropped} pairs")
+        out["engine"]["moe_pairs"] = {"routed": tr.counter_value("moe.pairs.routed"),
+                                      "dropped": dropped}
+    launches = flash_attention.launches
+    fwd_cfg = cfg
+    if cfg.moe:
+        fwd_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=(
+            cfg.moe.num_experts / cfg.moe.top_k)))
+    full = make_prefill_step(fwd_cfg, device=DEVICE)(model, full_batch)
+    diff = float((last - full.float()).abs().max())
+    scale = float(full.float().abs().max())
+    rtol = ENGINE_RTOL.get(cfg.family, ENGINE_RTOL_DEFAULT)
+    check(diff <= rtol * scale, f"{cfg.name}: the engine's last prompt logits differ "
+          f"from the forward's by {diff} (max |logit| {scale}, allowed {rtol} of it)")
+    out["engine"].update({"vs_forward_max_abs_diff": diff, "max_abs_logit": scale,
+                          "vs_forward_rtol": rtol,
+                          "vs_forward_top1": float((last.argmax(-1) == full.argmax(-1))
+                                                   .float().mean())})
+    flash_attention.launches = launches
+    tok = toks[:, -1:]  # the decode step alone at the next position (a spare cache slot)
+    out["engine"]["decode_profile"] = profile_device(
+        lambda: eng._step(model, eng.state, tok, eng.position), steps=4)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["max_memory_reserved"] = torch.cuda.max_memory_reserved()
+    del model, eng, full, last, toks, full_batch
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def ptxas_report(log: str) -> list[dict]:
     """ptxas's lines for each kernel of one build log: the (mangled) entry,
     its registers at entry, spill stores and loads, and static shared memory.
@@ -1100,6 +1333,20 @@ def main() -> int:
     train_flash_launches = flash_attention.launches - flash_before
     check(train_flash_launches == 0, "phase 9 launched the flash kernel")
 
+    family_launches = {}
+    family_flash = []
+    for label, arch, layers in FAMILIES:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        t = time.perf_counter()
+        fam, family_launches[label] = phase_family(gen, cfg)
+        phases[f"family {label}"] = {"host_s": time.perf_counter() - t}
+        check(family_launches[label] > 0 or cfg.family == "ssm",
+              f"{label}: the main path launched the flash kernel no time")
+        family_flash += [{"arch": arch, **case} for case in fam["flash_cases"]]
+        print(f"[{label} {arch}] {smi}: {json.dumps(fam)}")
+
     head = k1["timings"][0]  # DRC(9,6,3) full-width parity encode
     kernels = {"kernels": [{
         "name": "gf_matmul",
@@ -1127,8 +1374,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28",
-        "launches": flash_launches,
-        "launches_by_phase": {"6b-6c": flash_launches, "9": train_flash_launches},
+        "launches": flash_launches + sum(family_launches.values()),
+        "launches_by_phase": {"6b-6c": flash_launches, "9": train_flash_launches,
+                              **{f"{label} {arch}": family_launches[label]
+                                 for label, arch, _ in FAMILIES}},
         "max_abs_err": fl["max_abs_err"],
         "rel_fro_err": fl["rel_fro_err"],
         "max_err_over_scale": fl["max_err_over_scale"],
@@ -1147,6 +1396,9 @@ def main() -> int:
         "ragged": {key: fl["ragged"][key] for key in (
             "shape", "ms", "ms_spread", "tflops", "bound_ms", "bound_share", "library_ms",
             "kernel_over_library")},
+        "phase10_shapes": [{key: case[key] for key in (
+            "arch", "shape", "causal", "max_abs_err", "rel_fro_err", "ms", "bound_ms",
+            "bound_share", "library_ms")} for case in family_flash],
     }]}
     print(json.dumps({"phases_host_s": {k: v["host_s"] for k, v in phases.items()},
                       "build_s": build_s, "total_s": time.perf_counter() - t0}))

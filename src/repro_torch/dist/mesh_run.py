@@ -2,13 +2,14 @@
 
 One process per device of the ``(pod, node)`` mesh, all on this host, over a
 ``gloo`` process group that meets through a file (no port is chosen, so
-concurrent runs do not collide).  Payloads live on ``device``: on a card,
-the executor stages them through the host around each ``gloo`` call.
+concurrent runs do not collide).  Payloads live on ``device``, the card
+unless the caller asks for the CPU: on a card, the executor stages them
+through the host around each ``gloo`` call.
 
     import tempfile
     from repro_torch.dist.mesh_run import Case, run
     rows = run([Case(("DRC", 9, 6, 3), failed=0, sub=4096)],
-               workdir=tempfile.mkdtemp())
+               workdir=tempfile.mkdtemp(), device="cpu")
 
 Every case of one call has the same n (the world size); cases may differ in
 their (r, w) mesh, and every rank takes part in every mesh.  Each rank
@@ -63,7 +64,7 @@ class Case:
     stripes: int = 0  # 0: one stripe through spmd_repair; S: spmd_node_recovery
 
 
-def case_data(case: Case, device: str = "cpu") -> torch.Tensor:
+def case_data(case: Case, device: str = "cuda") -> torch.Tensor:
     """The case's data, (max(1, S), k*alpha, sub) uint8 on ``device``, drawn
     from a generator on that device seeded with the case's seed (so every
     rank of a run draws the same bytes)."""
@@ -161,7 +162,7 @@ def _worker(rank: int, world: int, init_file: str, cases: list[Case], device: st
         dist.destroy_process_group()
 
 
-def run(cases: list[Case], *, workdir: str, device: str = "cpu",
+def run(cases: list[Case], *, workdir: str, device: str = "cuda",
         save: bool = False) -> list[dict]:
     """Run ``cases`` in n processes (n of the first case, the same for all)
     and return one merged result per case."""

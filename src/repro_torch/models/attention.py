@@ -10,6 +10,10 @@ The PyTorch counterpart of ``repro.models.attention``.
   softmax over KV chunks in plain PyTorch.  The kernel is a forward only,
   so training takes the chunked path (``use_flash=False``), as the
   reference's differentiable path does.
+* Cross-attention (the whisper decoder) takes its keys and values from
+  ``cross_kv`` over the encoder's output; on a CUDA device it too runs the
+  flash kernel (bidirectional, Sq != Sk), where the reference always takes
+  its chunked path.
 * Decode consumes a KV cache laid out (batch, kv_len, kv_heads, head_dim).
   The cache is updated in place (slice assignment at ``position``), where
   JAX builds a new one with ``dynamic_update_slice``.
@@ -74,21 +78,30 @@ def attention(
     *,
     causal: bool = True,
     chunk: int = 512,
+    cross_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
     use_flash: bool | None = None,
 ) -> torch.Tensor:
-    """Full-sequence self-attention (prefill).  ``use_flash=None`` takes the
+    """Full-sequence attention (prefill).  ``use_flash=None`` takes the
     flash kernel where x lies on a CUDA device; ``False`` takes the chunked
-    plain path."""
+    plain path.
+
+    With ``cross_kv`` (k, v of ``cross_kv()``, (B, Sk, kvH, hd)) it is
+    cross-attention: only q is projected from x, neither q nor k gets RoPE,
+    and the mask is bidirectional, as in the reference."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     groups = cfg.n_heads // cfg.n_kv_heads
     q = _split_heads(p.wq(x), cfg.n_heads, hd)
-    k = _split_heads(p.wk(x), cfg.n_kv_heads, hd)
-    v = _split_heads(p.wv(x), cfg.n_kv_heads, hd)
-    positions = torch.arange(s, device=x.device)[None, :]
-    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cross_kv is None:
+        k = _split_heads(p.wk(x), cfg.n_kv_heads, hd)
+        v = _split_heads(p.wv(x), cfg.n_kv_heads, hd)
+        positions = torch.arange(s, device=x.device)[None, :]
+        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    else:
+        k, v = cross_kv
+        causal = False
     q = constrain(q, "batch", "seq", "heads", None)
     if use_flash is None:
         use_flash = q.device.type == "cuda"
@@ -100,6 +113,15 @@ def attention(
         out = _chunked_attention(qg, k, v, causal=causal, chunk=eff_chunk)
     out = out.reshape(b, s, cfg.n_heads * hd)
     return p.wo(out)
+
+
+def cross_kv(p: Attention, cfg: ArchConfig, enc: torch.Tensor):
+    """Encoder K/V for cross-attention (the whisper decoder): (B, Sk, kvH, hd)
+    each, without RoPE."""
+    hd = cfg.head_dim
+    k = _split_heads(p.wk(enc), cfg.n_kv_heads, hd)
+    v = _split_heads(p.wv(enc), cfg.n_kv_heads, hd)
+    return k, v
 
 
 # ------------------------------------------------------------------ decoding

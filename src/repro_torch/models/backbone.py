@@ -1,16 +1,28 @@
-"""Model: init / forward / decode of the dense family.
+"""Model: init / forward / decode for all ten architectures.
 
-The PyTorch counterpart of ``repro.models.backbone`` for ``family ==
-"dense"``: a homogeneous decoder stack (``Backbone`` -> ``ModuleList`` of
-``DecoderBlock`` -> ``Attention`` / ``MLP`` / ``Norm`` / ``Dense``), GQA
-attention with RoPE, SwiGLU or GeLU FFN, optional parallel block.  Parameter
-names follow the JAX tree with the stacked layer axis split
-(``blocks.{i}.attn.wq.w``), so ``models.weights.params_from_jax`` is a name
-map.  The MoE, SSM, hybrid, VLM and audio families are not ported yet and
-raise.
+The PyTorch counterpart of ``repro.models.backbone``.  Families:
 
-The decode state is ``{"kv": {"k", "v"}}`` with a leading layer axis, as in
-the reference; ``decode_step`` updates it in place.
+* dense | moe | vlm: a homogeneous decoder stack (``Backbone.blocks``, a
+  ``ModuleList`` of ``DecoderBlock``), GQA attention with RoPE, a SwiGLU or
+  GeLU FFN or the token-choice MoE.  The VLM prepends the caller's patch
+  embeddings (``batch["vis_embeds"]``) to the token stream.
+* ssm (xlstm): ``blocks`` of ``XLSTMLayer``, mLSTM with every
+  ``slstm_every``-th an sLSTM.
+* hybrid (zamba2): Mamba2 layers ``mamba_main`` (whole segments) and
+  ``mamba_rem`` (the remainder), with one weight-tied ``shared`` decoder
+  block run after each segment.
+* audio (whisper): an ``encoder`` stack over the caller's frame embeddings
+  (``batch["frames"]``), ``ln_enc``, then decoder ``blocks`` with
+  cross-attention (``lnx``/``xattn``) onto the encoder's output.
+
+Parameter names follow the JAX tree with every stacked layer axis split
+(``blocks.{i}.attn.wq.w``, ``mamba_main.{i}.core.in_xz.w``,
+``encoder.{i}.mlp.up.w``), so ``models.weights.params_from_jax`` is a name
+map.  The decode state has the reference's layout: ``{"kv": {"k", "v"}}``
+with a leading layer axis (plus ``"enc"`` for audio), ``{"blocks": [...]}``
+for ssm, and ``{"mamba": {"h", "conv"}, "shared_kv": {"k", "v"}}`` for
+hybrid, leading axes over layers and over shared-block calls.
+``decode_step`` writes the KV caches and the Mamba2 states in place.
 """
 from __future__ import annotations
 
@@ -26,38 +38,102 @@ from torch.utils.checkpoint import (
 )
 
 from . import attention as attn
+from . import mamba2 as m2
+from . import xlstm as xl
 from .common import DTYPES, Embedding, Norm, constrain
 from .config import ArchConfig
-from .mlp import MLP, MOE_NOT_PORTED, mlp
-
-NOT_PORTED = ("only the dense family is ported (ROADMAP: MoE, SSM, hybrid, VLM "
-              "and audio); got family {!r}")
+from .mlp import MLP, MoE, mlp, moe_layer_with_loss
 
 
+def _xlstm_is_slstm(cfg: ArchConfig, i: int) -> bool:
+    return bool(cfg.slstm_every) and (i + 1) % cfg.slstm_every == 0
+
+
+def _segments(cfg: ArchConfig) -> tuple[int, int, int]:
+    """hybrid: (layers per segment, whole segments, remaining layers)."""
+    seg = cfg.shared_attn_every or cfg.n_layers
+    segs, rem = divmod(cfg.n_layers, seg)
+    return seg, segs, rem
+
+
+# ===================================================================== blocks
 class DecoderBlock(nn.Module):
-    def __init__(self, cfg: ArchConfig, *, dtype, device) -> None:
+    def __init__(self, cfg: ArchConfig, *, dtype, device, cross: bool = False) -> None:
         super().__init__()
         self.ln1 = Norm(cfg.d_model, cfg.norm, device=device)
         self.attn = attn.Attention(cfg, dtype=dtype, device=device)
+        if cross:
+            self.lnx = Norm(cfg.d_model, cfg.norm, device=device)
+            self.xattn = attn.Attention(cfg, dtype=dtype, device=device)
         self.ln2 = None if cfg.parallel_block else Norm(cfg.d_model, cfg.norm, device=device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype=dtype, device=device)
+        if cfg.moe:
+            self.moe = MoE(cfg.d_model, cfg.moe, dtype=dtype, device=device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype=dtype, device=device)
 
 
-def decoder_block(p: DecoderBlock, cfg: ArchConfig, x, *, chunk=512, use_flash=None):
+def _ffn(p: DecoderBlock, cfg: ArchConfig, h: torch.Tensor):
+    """The block's FFN on h: (out, aux), aux the MoE's balance loss or 0."""
+    if cfg.moe:
+        return moe_layer_with_loss(p.moe, cfg, h)
+    return mlp(p.mlp, h, cfg.mlp_act), torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def decoder_block(p: DecoderBlock, cfg: ArchConfig, x, *, enc_kv=None, chunk=512,
+                  use_flash=None):
     """Full-sequence block.  Returns (out, aux_loss)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = p.ln1(x)
     a = attn.attention(p.attn, cfg, h, chunk=chunk, use_flash=use_flash)
     if cfg.parallel_block:
-        f = mlp(p.mlp, h, cfg.mlp_act)
+        f, aux = _ffn(p, cfg, h)
         out = x + (a + f) * cfg.residual_scale
     else:
         x = x + a * cfg.residual_scale
-        h2 = p.ln2(x)
-        f = mlp(p.mlp, h2, cfg.mlp_act)
+        if enc_kv is not None:
+            hx = p.lnx(x)
+            x = x + attn.attention(p.xattn, cfg, hx, cross_kv=enc_kv, chunk=chunk,
+                                   use_flash=use_flash) * cfg.residual_scale
+        f, aux = _ffn(p, cfg, p.ln2(x))
         out = x + f * cfg.residual_scale
     out = constrain(out, "batch", "seq", "embed")
     return out, aux
+
+
+class XLSTMLayer(nn.Module):
+    """One ssm block: ``ln``, ``core`` (mLSTM or sLSTM), and ``ln2``/``mlp``
+    where the config has a ``d_ff``."""
+
+    def __init__(self, cfg: ArchConfig, i: int, *, dtype, device) -> None:
+        super().__init__()
+        self.ln = Norm(cfg.d_model, cfg.norm, device=device)
+        core = xl.SLSTM if _xlstm_is_slstm(cfg, i) else xl.MLSTM
+        self.core = core(cfg, dtype=dtype, device=device)
+        if cfg.d_ff:
+            self.ln2 = Norm(cfg.d_model, cfg.norm, device=device)
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype=dtype, device=device)
+
+
+def xlstm_layer(p: XLSTMLayer, cfg: ArchConfig, i: int, x: torch.Tensor) -> torch.Tensor:
+    h = p.ln(x)
+    core = xl.slstm_block if _xlstm_is_slstm(cfg, i) else xl.mlstm_block
+    out = x + core(p.core, cfg, h)
+    if cfg.d_ff:
+        out = out + mlp(p.mlp, p.ln2(out), cfg.mlp_act)
+    return constrain(out, "batch", "seq", "embed")
+
+
+class MambaLayer(nn.Module):
+    """One hybrid Mamba2 layer: ``ln`` and ``core``."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype, device) -> None:
+        super().__init__()
+        self.ln = Norm(cfg.d_model, cfg.norm, device=device)
+        self.core = m2.Mamba2(cfg, dtype=dtype, device=device)
+
+
+def mamba_layer(p: MambaLayer, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    x = x + m2.mamba2_block(p.core, cfg, p.ln(x))
+    return constrain(x, "batch", "seq", "embed")
 
 
 # "dots": the products with no batch dims (the dense layers' ``x @ w``, which
@@ -74,8 +150,9 @@ def _keep_products(ctx, op, *args, **kwargs):
 def _remat(fn, cfg: ArchConfig):
     """``fn`` under the config's rematerialisation policy (the reference's
     ``_remat``): ``none`` runs it as it is, ``full`` keeps only its inputs
-    and recomputes the rest in backward, ``dots`` keeps the dense products."""
-    if cfg.remat == "none":
+    and recomputes the rest in backward, ``dots`` keeps the dense products.
+    With grad off (serving) every block runs as it is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     if cfg.remat == "dots":
         context_fn = functools.partial(create_selective_checkpoint_contexts, _keep_products)
@@ -91,29 +168,45 @@ def _remat(fn, cfg: ArchConfig):
 
 
 class Backbone(nn.Module):
-    """The dense model; parameters are allocated uninitialised (see
+    """The model of any family; parameters are allocated uninitialised (see
     ``init_model`` and ``weights.params_from_jax``)."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda") -> None:
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(NOT_PORTED.format(cfg.family))
-        if cfg.moe:
-            raise NotImplementedError(MOE_NOT_PORTED)
         dtype = DTYPES[cfg.param_dtype]
-        self.embed = Embedding(cfg.padded_vocab, cfg.d_model, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device)
+        self.embed = Embedding(cfg.padded_vocab, cfg.d_model, **kw)
         self.ln_f = Norm(cfg.d_model, cfg.norm, device=device)
         self.lm_head = None if cfg.tie_embeddings else Embedding(
-            cfg.padded_vocab, cfg.d_model, dtype=dtype, device=device)
-        self.blocks = nn.ModuleList(
-            DecoderBlock(cfg, dtype=dtype, device=device) for _ in range(cfg.n_layers))
+            cfg.padded_vocab, cfg.d_model, **kw)
+        fam = cfg.family
+        if fam in ("dense", "moe", "vlm"):
+            self.blocks = nn.ModuleList(DecoderBlock(cfg, **kw) for _ in range(cfg.n_layers))
+        elif fam == "ssm":
+            self.blocks = nn.ModuleList(XLSTMLayer(cfg, i, **kw) for i in range(cfg.n_layers))
+        elif fam == "hybrid":
+            seg, segs, rem = _segments(cfg)
+            self.mamba_main = nn.ModuleList(MambaLayer(cfg, **kw) for _ in range(segs * seg))
+            if rem:
+                self.mamba_rem = nn.ModuleList(MambaLayer(cfg, **kw) for _ in range(rem))
+            self.shared = DecoderBlock(cfg, **kw)  # weight-tied across calls
+        elif fam == "audio":
+            self.encoder = nn.ModuleList(DecoderBlock(cfg, **kw)
+                                         for _ in range(cfg.encoder_layers))
+            self.ln_enc = Norm(cfg.d_model, cfg.norm, device=device)
+            self.blocks = nn.ModuleList(DecoderBlock(cfg, cross=True, **kw)
+                                        for _ in range(cfg.n_layers))
+        else:
+            raise ValueError(f"unknown family {fam}")
 
 
 def init_model(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") -> Backbone:
     """A model with random weights, drawn from ``generator`` with the
     reference's distributions: dense ``U(-1/sqrt(d_in), 1/sqrt(d_in))`` with
-    zero bias, embeddings ``N(0, 0.02^2)``, norms at scale 1 and bias 0.
-    ``generator`` must live on ``device``."""
+    zero bias (f32 for the MoE router and the mLSTM gates), MoE experts
+    ``U(-1/sqrt(d), 1/sqrt(d))``, embeddings and the Mamba2 conv ``N(0,
+    0.02^2)``, Mamba2 ``a_log`` 0 and ``d_skip`` 1, norms at scale 1 and bias
+    0.  ``generator`` must live on ``device``."""
     model = Backbone(cfg, device=device)
     with torch.no_grad():
         for module in model.modules():
@@ -134,7 +227,27 @@ def _logits(p: Backbone, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _embed_inputs(p: Backbone, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     x = p.embed(batch["tokens"]) * cfg.embed_scale
+    if cfg.family == "vlm" and "vis_embeds" in batch:
+        x = torch.cat([batch["vis_embeds"].to(x.dtype), x], dim=1)
     return constrain(x, "batch", "seq", "embed")
+
+
+def _encoder_block(bp: DecoderBlock, cfg: ArchConfig, x, *, use_flash=None):
+    a = attn.attention(bp.attn, cfg, bp.ln1(x), causal=False, use_flash=use_flash)
+    x = x + a
+    return x + mlp(bp.mlp, bp.ln2(x), cfg.mlp_act)
+
+
+def _run_encoder(p: Backbone, cfg: ArchConfig, frames: torch.Tensor, *,
+                 use_flash: bool | None = None) -> torch.Tensor:
+    """Whisper encoder over the frame embeddings (B, frames, d) (the conv
+    frontend is a stub in the reference too): bidirectional self-attention
+    with RoPE, KV chunks of 512."""
+    x = frames.to(DTYPES[cfg.param_dtype])
+    block = _remat(_encoder_block, cfg)
+    for bp in p.encoder:
+        x = block(bp, cfg, x, use_flash=use_flash)
+    return p.ln_enc(x)
 
 
 def forward_hidden(p: Backbone, cfg: ArchConfig, batch: dict, *, chunk: int = 512,
@@ -145,48 +258,140 @@ def forward_hidden(p: Backbone, cfg: ArchConfig, batch: dict, *, chunk: int = 51
     grad off (serving) the blocks run as they are."""
     x = _embed_inputs(p, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = _remat(decoder_block, cfg) if torch.is_grad_enabled() else decoder_block
-    for bp in p.blocks:
-        x, a = block(bp, cfg, x, chunk=chunk, use_flash=use_flash)
-        aux = aux + a
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        block = _remat(decoder_block, cfg)
+        for bp in p.blocks:
+            x, a = block(bp, cfg, x, chunk=chunk, use_flash=use_flash)
+            aux = aux + a
+    elif fam == "ssm":
+        layer = _remat(xlstm_layer, cfg)
+        for i, bp in enumerate(p.blocks):
+            x = layer(bp, cfg, i, x)
+    elif fam == "hybrid":
+        seg, segs, _ = _segments(cfg)
+        layer = _remat(mamba_layer, cfg)
+        shared = _remat(decoder_block, cfg)
+        for gi in range(segs):
+            for bp in p.mamba_main[gi * seg:(gi + 1) * seg]:
+                x = layer(bp, cfg, x)
+            x, a = shared(p.shared, cfg, x, chunk=chunk, use_flash=use_flash)
+            aux = aux + a
+        for bp in getattr(p, "mamba_rem", ()):
+            x = layer(bp, cfg, x)
+    elif fam == "audio":
+        enc = _run_encoder(p, cfg, batch["frames"], use_flash=use_flash)
+
+        def block(bp, h):
+            kv = attn.cross_kv(bp.xattn, cfg, enc)
+            return decoder_block(bp, cfg, h, enc_kv=kv, chunk=chunk, use_flash=use_flash)
+
+        block = _remat(block, cfg)
+        for bp in p.blocks:
+            x, a = block(bp, x)
+            aux = aux + a
+    else:
+        raise ValueError(fam)
     return p.ln_f(x), aux
 
 
 def forward(p: Backbone, cfg: ArchConfig, batch: dict, *, chunk: int = 512,
             use_flash: bool | None = None):
     """Full-sequence forward (prefill).  ``batch["tokens"]`` (B, S) on the
-    model's device.  Returns (logits (B, S, padded_vocab), aux).
-    ``use_flash=None`` takes the flash kernel on a CUDA device."""
+    model's device, with ``vis_embeds`` (vlm) or ``frames`` (audio) where the
+    family takes them.  Returns (logits (B, S', padded_vocab), aux), S' = S
+    plus the visual prefix.  ``use_flash=None`` takes the flash kernel on a
+    CUDA device."""
     x, aux = forward_hidden(p, cfg, batch, chunk=chunk, use_flash=use_flash)
     return _logits(p, cfg, x), aux
 
 
 # ===================================================================== decode
 def init_decode_state(cfg: ArchConfig, batch: int, kv_len: int, *, device="cuda") -> dict:
-    """Zero KV caches ``{"kv": {"k", "v"}}``, each (L, B, kv_len, kvH, hd)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(NOT_PORTED.format(cfg.family))
-    spec = attn.KVCacheSpec(batch, kv_len, cfg.n_kv_heads, cfg.head_dim,
-                            DTYPES[cfg.param_dtype])
-    return {"kv": spec.zeros(cfg.n_layers, device)}
+    """The family's zero decode state (see the module docstring): KV caches
+    (L, B, kv_len, kvH, hd), the audio encoder's output ``enc`` (B,
+    encoder_seq, d) for the caller to set, xLSTM states per block, Mamba2
+    states stacked over layers and the shared block's caches over its calls."""
+    dtype = DTYPES[cfg.param_dtype]
+    fam = cfg.family
+    spec = attn.KVCacheSpec(batch, kv_len, cfg.n_kv_heads, cfg.head_dim, dtype)
+    if fam in ("dense", "moe", "vlm", "audio"):
+        state = {"kv": spec.zeros(cfg.n_layers, device)}
+        if fam == "audio":
+            state["enc"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model), dtype=dtype,
+                                       device=device)
+        return state
+    if fam == "ssm":
+        return {"blocks": [
+            xl.slstm_init_state(cfg, batch, dtype, device=device) if _xlstm_is_slstm(cfg, i)
+            else xl.mlstm_init_state(cfg, batch, device=device)
+            for i in range(cfg.n_layers)]}
+    if fam == "hybrid":
+        _, segs, _ = _segments(cfg)
+        return {"mamba": m2.mamba2_init_state(cfg, batch, layers=cfg.n_layers, device=device),
+                "shared_kv": spec.zeros(segs, device)}
+    raise ValueError(fam)
+
+
+def _layer(tree: dict, i: int) -> dict:
+    return {key: leaf[i] for key, leaf in tree.items()}
+
+
+def _decode_decoder_block(bp: DecoderBlock, cfg: ArchConfig, x, cache: dict, position: int):
+    hn = bp.ln1(x)
+    a, _ = attn.decode_attention(bp.attn, cfg, hn, cache, position)
+    if cfg.parallel_block:
+        return x + (a + _ffn(bp, cfg, hn)[0]) * cfg.residual_scale
+    x = x + a * cfg.residual_scale
+    return x + _ffn(bp, cfg, bp.ln2(x))[0] * cfg.residual_scale
 
 
 def decode_step(p: Backbone, cfg: ArchConfig, state: dict, tokens: torch.Tensor,
                 position: int):
     """One-token decode.  tokens (B, 1); returns (logits (B, 1, V), state).
 
-    The caches in ``state`` are written in place at ``position``.
-    """
+    The KV caches and Mamba2 states in ``state`` are written in place at
+    ``position``; the xLSTM states are replaced."""
     x = p.embed(tokens) * cfg.embed_scale
-    kv = state["kv"]
-    for i, bp in enumerate(p.blocks):
-        cache = {"k": kv["k"][i], "v": kv["v"][i]}
-        hn = bp.ln1(x)
-        a, _ = attn.decode_attention(bp.attn, cfg, hn, cache, position)
-        if cfg.parallel_block:
-            x = x + (a + mlp(bp.mlp, hn, cfg.mlp_act)) * cfg.residual_scale
-        else:
-            x = x + a * cfg.residual_scale
-            x = x + mlp(bp.mlp, bp.ln2(x), cfg.mlp_act) * cfg.residual_scale
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        for i, bp in enumerate(p.blocks):
+            x = _decode_decoder_block(bp, cfg, x, _layer(state["kv"], i), position)
+    elif fam == "audio":
+        enc = state["enc"]
+        for i, bp in enumerate(p.blocks):
+            a, _ = attn.decode_attention(bp.attn, cfg, bp.ln1(x), _layer(state["kv"], i),
+                                         position)
+            x = x + a
+            kv = attn.cross_kv(bp.xattn, cfg, enc)  # recomputed each step, as the reference
+            x = x + attn.attention(bp.xattn, cfg, bp.lnx(x), cross_kv=kv)
+            x = x + mlp(bp.mlp, bp.ln2(x), cfg.mlp_act)
+    elif fam == "ssm":
+        new_states = []
+        for i, (bp, st) in enumerate(zip(p.blocks, state["blocks"])):
+            step = xl.slstm_decode if _xlstm_is_slstm(cfg, i) else xl.mlstm_decode
+            y, st = step(bp.core, cfg, bp.ln(x), st)
+            x = x + y
+            if cfg.d_ff:
+                x = x + mlp(bp.mlp, bp.ln2(x), cfg.mlp_act)
+            new_states.append(st)
+        state = {"blocks": new_states}
+    elif fam == "hybrid":
+        seg, segs, _ = _segments(cfg)
+        mstate = state["mamba"]
+        layers = list(p.mamba_main) + list(getattr(p, "mamba_rem", ()))
+        for i, bp in enumerate(layers):
+            y, new = m2.mamba2_decode(bp.core, cfg, bp.ln(x), _layer(mstate, i))
+            x = x + y
+            for key, leaf in new.items():
+                mstate[key][i] = leaf
+            if i % seg == seg - 1 and i // seg < segs:  # the end of a segment
+                sh = p.shared
+                cache = _layer(state["shared_kv"], i // seg)
+                a, _ = attn.decode_attention(sh.attn, cfg, sh.ln1(x), cache, position)
+                x = x + a
+                x = x + mlp(sh.mlp, sh.ln2(x), cfg.mlp_act)
+    else:
+        raise ValueError(fam)
     x = p.ln_f(x)
     return _logits(p, cfg, x), state

@@ -1,17 +1,27 @@
-"""Feed-forward blocks: SwiGLU / GeLU.
+"""Feed-forward blocks: SwiGLU / GeLU and the token-choice MoE layer.
 
-The PyTorch counterpart of ``repro.models.mlp``.  The token-choice MoE layer
-is not ported yet (ROADMAP, "What is left": MoE, SSM, hybrid, VLM and audio).
+The PyTorch counterpart of ``repro.models.mlp``.  The MoE layer runs on one
+device: sort-based top-k dispatch into (experts, capacity) slots, the
+experts' FFN as batched products, and a scatter-add combine.  The
+reference's ``_moe_spmd`` (``shard_map`` with ``all_to_all``) waits for the
+sharding rules (ROADMAP queue 1, item 8); given a mesh with a ``model``
+dimension, ``moe_layer_with_loss`` raises rather than run the local path.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Dense, constrain
+from repro_torch import obs
 
-MOE_NOT_PORTED = "the MoE layer is not ported yet (ROADMAP: MoE, SSM, hybrid, VLM and audio)"
+from .common import Dense, _param, constrain
+from .config import ArchConfig, MoEConfig
+
+MOE_MESH_UNSUPPORTED = ("the MoE layer over a mesh (the reference's _moe_spmd) waits for "
+                       "the sharding rules (ROADMAP queue 1, item 8)")
 
 
 class MLP(nn.Module):
@@ -24,11 +34,150 @@ class MLP(nn.Module):
         self.down = Dense(d_ff, d, dtype=dtype, device=device)
 
 
+def _act(h: torch.Tensor, gate: torch.Tensor | None) -> torch.Tensor:
+    """SwiGLU (``silu(gate) * h``) where there is a gate, else GeLU in
+    ``jax.nn.gelu``'s default (tanh) form."""
+    if gate is not None:
+        return F.silu(gate) * h
+    return F.gelu(h, approximate="tanh")
+
+
 def mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
-    h = p.up(x)
-    if act == "swiglu":
-        h = F.silu(p.gate(x)) * h
-    else:
-        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default form
+    h = _act(p.up(x), p.gate(x) if act == "swiglu" else None)
     h = constrain(h, "batch", "seq", "ffn")
     return p.down(h)
+
+
+# ------------------------------------------------------------------------ MoE
+class MoE(nn.Module):
+    """Weights of the MoE layer: ``router.w`` f32 ``(d, E)``, ``up`` and
+    ``gate`` ``(E, d, f)``, ``down`` ``(E, f, d)``.  ``gate`` exists for GeLU
+    experts too (unused there), as the reference's ``init_moe`` makes it."""
+
+    def __init__(self, d: int, moe: MoEConfig, *, dtype, device) -> None:
+        super().__init__()
+        e, f = moe.num_experts, moe.d_ff_expert
+        self.router = Dense(d, e, dtype=torch.float32, device=device)
+        self.up = _param((e, d, f), dtype, device)
+        self.gate = _param((e, d, f), dtype, device)
+        self.down = _param((e, f, d), dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Expert weights ``U(-1/sqrt(d), 1/sqrt(d))``, ``down`` included
+        (the reference draws all three with the model width's limit); the
+        router is a ``Dense`` and draws its own."""
+        lim = 1.0 / math.sqrt(self.up.shape[1])
+        for w in (self.up, self.gate, self.down):
+            w.uniform_(-lim, lim, generator=generator)
+
+
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest along the last axis, ties to the
+    lower index (a stable descending sort keeps equal values in index
+    order; ``torch.topk`` promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def capacity(moe: MoEConfig, n: int, k: int) -> int:
+    """Slots per expert for ``n`` tokens routed ``k`` ways, in Python float
+    arithmetic as the reference computes it."""
+    return max(8, min(int(moe.capacity_factor * n * k / moe.num_experts), n))
+
+
+def _dispatch_local(tokens: torch.Tensor, router_w: torch.Tensor, moe: MoEConfig, k: int):
+    """Local sort-based top-k dispatch: returns (xs (E, C, D), combine info
+    ``(slot, t_sorted, g_sorted, keep, capacity, aux)``).
+
+    Each (token, choice) pair is sorted by expert (stably, so an expert's
+    slots go to its tokens in token order); the pairs past an expert's
+    ``capacity`` are dropped into the overflow slot ``E * C``, which is
+    scattered into and then cut off."""
+    n, d = tokens.shape
+    e = moe.num_experts
+    logits = tokens.float() @ router_w  # (N, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_idx = _top_k(probs, k)  # (N, k)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+    density = F.one_hot(expert_idx[:, 0], e).float().mean(dim=0)
+    density_prob = probs.mean(dim=0)
+    aux = e * torch.sum(density * density_prob)
+
+    cap = capacity(moe, n, k)
+    flat_expert = expert_idx.reshape(n * k)
+    flat_gate = gate_vals.reshape(n * k)
+    flat_tok = torch.arange(n, device=tokens.device).repeat_interleave(k)
+
+    order = torch.argsort(flat_expert, stable=True)
+    e_sorted = flat_expert[order]
+    t_sorted = flat_tok[order]
+    g_sorted = flat_gate[order]
+    same = torch.arange(n * k, device=tokens.device)
+    start = torch.searchsorted(e_sorted, torch.arange(e, device=tokens.device), side="left")
+    pos = same - start[e_sorted]
+    keep = pos < cap
+    slot = torch.where(keep, e_sorted * cap + pos, e * cap)
+
+    xs = torch.zeros((e * cap + 1, d), dtype=tokens.dtype, device=tokens.device)
+    xs.index_add_(0, slot, tokens[t_sorted] * keep[:, None].to(tokens.dtype))
+    xs = xs[:-1].reshape(e, cap, d)
+    return xs, (slot, t_sorted, g_sorted, keep, cap, aux)
+
+
+def _combine_local(ys: torch.Tensor, info, n: int) -> torch.Tensor:
+    """Each token's ``k`` expert outputs, weighted by its gates, scatter-added
+    in expert order (the sort's); dropped pairs read the zero overflow row."""
+    slot, t_sorted, g_sorted, keep, cap, _ = info
+    e, _, d = ys.shape
+    flat_ys = torch.cat([ys.reshape(e * cap, d), ys.new_zeros((1, d))], dim=0)
+    contrib = flat_ys[slot] * (g_sorted * keep).to(ys.dtype)[:, None]
+    return ys.new_zeros((n, d)).index_add_(0, t_sorted, contrib)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum(..., preferred_element_type=f32)``: a batched product with an
+    f32 result.  On a CUDA device bf16 inputs stay bf16 and the tensor cores
+    accumulate into f32 (``aten::bmm.dtype``); the CPU build has no such
+    kernel, so there the inputs are upcast, which is the same arithmetic."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _expert_ffn(xs, up, gate, down, act: str) -> torch.Tensor:
+    """(E, C, D) -> (E, C, D): each expert's FFN on its slots, the up and
+    gate products in f32, the down product in the activations' dtype."""
+    h = _bmm_f32(xs, up)
+    h = _act(h, _bmm_f32(xs, gate) if act == "swiglu" else None)
+    return torch.bmm(h.to(xs.dtype), down)
+
+
+def moe_layer_with_loss(p: MoE, cfg: ArchConfig, x: torch.Tensor, *, mesh=None):
+    """Token-choice top-k MoE on one device: returns (out (B, S, D), aux).
+
+    ``mesh`` (a ``DeviceMesh``) with a ``model`` dimension of more than one
+    device raises: the expert-parallel path is not ported.  Under
+    ``obs.tracing`` it counts the (token, choice) pairs routed and those
+    dropped over capacity (``moe.pairs.{routed,dropped}``); reading the count
+    waits for the device, so it is read only when tracing."""
+    # the reference's test for its SPMD path: more than one device, a model axis
+    if mesh is not None and mesh.size() > 1 and "model" in (mesh.mesh_dim_names or ()):
+        raise NotImplementedError(MOE_MESH_UNSUPPORTED)
+    moe = cfg.moe
+    b, s, d = x.shape
+    tokens = x.reshape(b * s, d)
+    xs, info = _dispatch_local(tokens, p.router.w, moe, moe.top_k)
+    if obs.enabled():
+        keep = info[3]
+        obs.counter_add("moe.pairs.routed", keep.numel())
+        obs.counter_add("moe.pairs.dropped", int(keep.numel() - keep.sum()))
+    ys = _expert_ffn(xs, p.up, p.gate, p.down, cfg.mlp_act)
+    out = _combine_local(ys, info, tokens.shape[0])
+    return out.reshape(b, s, d), info[-1]
+
+
+def moe_layer(p: MoE, cfg: ArchConfig, x: torch.Tensor, *, mesh=None) -> torch.Tensor:
+    return moe_layer_with_loss(p, cfg, x, mesh=mesh)[0]

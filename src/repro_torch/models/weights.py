@@ -4,8 +4,9 @@ port's ``Backbone`` and optimizer state.
 ``params_from_jax(cfg, np_tree)`` takes the reference's parameter tree with
 every leaf already a numpy array (``jax.tree.map(np.asarray, params)`` of
 ``repro.models.backbone.init_model``) and returns a ``Backbone`` holding the
-same values.  The reference stacks the blocks on a leading layer axis
-(``scan_layers=True``); this splits it into ``blocks.{i}.*``.  A bf16 leaf
+same values, for every family.  The reference stacks the layers of
+``blocks``, ``mamba_main``, ``mamba_rem`` and ``encoder`` on a leading axis
+(``scan_layers=True``); this splits each into ``{stack}.{i}.*``.  A bf16 leaf
 (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) is viewed as
 uint16 and reinterpreted as ``torch.bfloat16``: the bits are copied as they
 are, with no f32 round trip.  Only numpy is read here.
@@ -37,14 +38,20 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+# the reference's layer stacks: a dict whose every leaf has a leading layer
+# axis (``scan_layers=True``; xlstm's ``blocks`` is a list instead)
+STACKED = ("blocks", "mamba_main", "mamba_rem", "encoder")
+
+
 def named_arrays(cfg: ArchConfig, np_tree: dict) -> dict:
-    """The tree's leaves under the port's parameter names."""
+    """The tree's leaves under the port's parameter names: each stacked
+    layer axis split into ``{stack}.{i}.*``."""
     out = {}
     for name, leaf in _flatten(np_tree):
-        if name.startswith("blocks.") and isinstance(np_tree["blocks"], dict):
-            rest = name[len("blocks."):]
-            for i in range(cfg.n_layers):
-                out[f"blocks.{i}.{rest}"] = leaf[i]
+        stack, _, rest = name.partition(".")
+        if stack in STACKED and isinstance(np_tree[stack], dict):
+            for i in range(leaf.shape[0]):
+                out[f"{stack}.{i}.{rest}"] = leaf[i]
         else:
             out[name] = leaf
     return out

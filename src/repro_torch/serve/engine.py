@@ -6,6 +6,11 @@ the KV cache token by token; it never takes the flash path and does not
 keep its logits), so ``generate`` after a prefill starts from token 0.  It
 emits the same ``serve.prefill`` / ``serve.generate`` spans and
 ``serve.tokens.{prefill,decode}`` counters.
+
+It holds any family's decode state (``backbone.init_decode_state``).  For
+the audio family the caller sets ``engine.state["enc"]`` to the encoder's
+output (``backbone._run_encoder``) before the prefill, as with the
+reference's engine.
 """
 from __future__ import annotations
 

@@ -2,8 +2,8 @@
 
 * ``prefill_step`` — full-sequence forward over the prompt (through the
   flash kernel on a CUDA device): returns next-token logits.
-* ``serve_step`` — one new token against the KV cache of
-  ``backbone.init_decode_state``, which it updates in place.
+* ``serve_step`` — one new token against the decode state of
+  ``backbone.init_decode_state`` (KV caches, SSM states), which it updates.
 
 The PyTorch counterpart of ``repro.serve.serve_step``.  Each step checks
 that the model lies on the step's device, moves the tokens there, and runs
@@ -26,13 +26,15 @@ def _on(model, device: torch.device) -> None:
 def make_prefill_step(cfg: ArchConfig, chunk: int = 512, *, device="cuda",
                       use_flash: bool | None = None):
     """``prefill_step(model, batch) -> logits (B, padded_vocab)`` at the last
-    position.  ``use_flash=None`` takes the flash kernel on a CUDA device."""
+    position.  ``batch`` holds ``tokens`` and, where the family takes them,
+    ``vis_embeds`` (vlm) or ``frames`` (audio); each is moved to the step's
+    device.  ``use_flash=None`` takes the flash kernel on a CUDA device."""
     device = torch.device(device)
 
     @torch.no_grad()
     def prefill_step(model, batch):
         _on(model, device)
-        batch = {**batch, "tokens": torch.as_tensor(batch["tokens"], device=device)}
+        batch = {key: torch.as_tensor(val, device=device) for key, val in batch.items()}
         logits, _ = backbone.forward(model, cfg, batch, chunk=chunk, use_flash=use_flash)
         return logits[:, -1, :]
 

@@ -46,7 +46,7 @@ def _cases(world):
 
 def _ref_stripes(case):
     code = r_make_code(*case.code)
-    return [np.stack(code.encode(d)) for d in mesh_run.case_data(case).numpy()]
+    return [np.stack(code.encode(d)) for d in mesh_run.case_data(case, device="cpu").numpy()]
 
 
 def _ref_counters(case):
@@ -65,7 +65,7 @@ def _ref_counters(case):
 @pytest.mark.parametrize("world", sorted({c[1] for c in CODES}))
 def test_mesh_repair_matches_reference_and_moves_eq3_bytes(world, tmp_path):
     cases = _cases(world)
-    rows = mesh_run.run(cases, workdir=str(tmp_path), save=True)
+    rows = mesh_run.run(cases, workdir=str(tmp_path), save=True, device="cpu")
     for i, (case, row) in enumerate(zip(cases, rows)):
         label = f"{case.code} failed {case.failed} stripes {case.stripes}"
         code = make_code(*case.code)
@@ -124,3 +124,11 @@ def test_make_repair_mesh_needs_a_process_group_of_r_times_w():
 
     with pytest.raises(RuntimeError, match="process group"):
         make_repair_mesh(3, 3, device_type="cpu")
+
+
+def test_mesh_run_defaults_to_the_card():
+    """The entry points run on the card unless the caller asks for the CPU."""
+    import inspect
+
+    for fn in (mesh_run.run, mesh_run.case_data):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -385,3 +385,74 @@ def test_bf16_train_step_on_card_has_a_gradient_for_every_parameter(dev):
         losses[remat] = float(m["loss"])
     assert losses["full"] == pytest.approx(losses["none"], rel=1e-3)
     assert losses["dots"] == pytest.approx(losses["none"], rel=1e-3)
+
+
+# one smoke config per family, widened to head dim 64 (the kernel takes 32, 64
+# and 128; the smoke configs have 16 or 32): d_model = 64 * heads
+FAMILY_SMOKES = ["dbrx_132b", "zamba2_1p2b", "xlstm_125m", "internvl2_1b", "whisper_small"]
+
+
+def _family_inputs(cfg, g, b, s):
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")}
+    if cfg.family == "vlm":
+        batch["vis_embeds"] = torch.randn((b, cfg.vision_tokens, cfg.d_model), generator=g,
+                                          device="cuda").bfloat16()
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g,
+                                      device="cuda").bfloat16()
+    return batch
+
+
+@pytest.mark.parametrize("arch", FAMILY_SMOKES)
+def test_family_prefill_and_engine_on_card(dev, arch):
+    base = configs.get_smoke(arch)
+    cfg = dataclasses.replace(base, d_model=64 * base.n_heads)
+    if cfg.family == "audio":
+        cfg = dataclasses.replace(cfg, encoder_seq=300)  # no multiple of the 64-row tile
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    model = backbone.init_model(cfg, generator=g, device="cuda")
+    want = cfg.n_layers  # flash launches per forward
+    if cfg.family == "ssm":
+        want = 0
+    elif cfg.family == "hybrid":  # the shared block, once per whole segment
+        want = cfg.n_layers // cfg.shared_attn_every
+    elif cfg.family == "audio":  # encoder self-attention, decoder self and cross
+        want = cfg.encoder_layers + 2 * cfg.n_layers
+    batch = _family_inputs(cfg, g, 2, 128)
+    before = flash_attention.launches
+    logits = make_prefill_step(cfg, device="cuda")(model, batch)
+    assert flash_attention.launches == before + want
+    plain = make_prefill_step(cfg, device="cuda", use_flash=False)(model, batch)
+    assert bool(torch.isfinite(logits.float()).all())
+    assert float((logits.float() - plain.float()).abs().max()) <= \
+        0.05 * float(plain.float().abs().max())
+    eng = ServeEngine(cfg, model, batch=2, kv_len=24, device="cuda")
+    if cfg.family == "audio":
+        with torch.no_grad():
+            eng.state["enc"] = backbone._run_encoder(model, cfg, batch["frames"])
+    last = eng.prefill(batch["tokens"][:, :8])
+    out = eng.generate(4)
+    assert out.shape == (2, 4) and out.device.type == "cuda" and eng.position == 12
+    assert int(out.min()) >= 0 and int(out.max()) < cfg.padded_vocab
+    fwd_cfg = cfg
+    if cfg.moe:  # the forward's capacity counts every token: make it drop none
+        fwd_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    full_batch = {"tokens": batch["tokens"][:, :8]}
+    if cfg.family == "audio":
+        full_batch["frames"] = batch["frames"]
+    full = make_prefill_step(fwd_cfg, device="cuda")(model, full_batch)
+    rtol = 0.10 if cfg.family == "ssm" else 0.05  # chip_smoke.py's ENGINE_RTOL, and why
+    assert float((last - full.float()).abs().max()) <= rtol * float(full.float().abs().max())
+
+
+def test_moe_expert_products_accumulate_in_f32_on_card(dev):
+    from repro_torch.models import mlp
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    a = torch.randn((4, 64, 256), generator=g, device="cuda").bfloat16()
+    b = torch.randn((4, 256, 128), generator=g, device="cuda").bfloat16()
+    got = mlp._bmm_f32(a, b)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, torch.bmm(a.float(), b.float()), atol=1e-3, rtol=1e-4)

@@ -36,7 +36,9 @@ def test_port_modules_are_found():
                  "repro_torch.train.schedule", "repro_torch.train.optimizer",
                  "repro_torch.train.xent", "repro_torch.train.data",
                  "repro_torch.train.train_step", "repro_torch.launch.train",
-                 "repro_torch.examples.train_e2e", "repro_torch.examples.elastic_recovery"):
+                 "repro_torch.examples.train_e2e", "repro_torch.examples.elastic_recovery",
+                 "repro_torch.models.mamba2", "repro_torch.models.xlstm",
+                 "repro_torch.examples.serve_demo"):
         assert must in names
 
 

@@ -140,12 +140,6 @@ def test_forward_logits_match_bf16(arch):
     assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.75
 
 
-def test_other_families_raise():
-    for arch in ("dbrx_132b", "xlstm_125m", "zamba2_1p2b", "internvl2_1b", "whisper_small"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbb.init_model(tconfigs.get_smoke(arch), generator=torch.Generator(), device="cpu")
-
-
 def test_init_model_distributions():
     cfg = tconfigs.get_smoke("starcoder2_3b")
     g = torch.Generator()
