@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port on one card: the repair data path,
-serving every model family, and training.
+serving and training every model family, and the repair demos.
 
     python3 chip_smoke.py
 
@@ -90,7 +90,28 @@ drives the main path through the entry points a user calls, at the paper's
    logits at the last prompt position held against the full forward's, and
    its decode step under ``torch.profiler``; peak memory.  10a also counts
    the (token, choice) pairs the prefill dropped over capacity and checks
-   that decode at batch 8 drops none.
+   that decode at batch 8 drops none;
+11. every family trained, after phase 10, one at a time, at its published
+   width in bf16 with random seeded weights, AdamW state in the config's
+   ``opt_state_dtype`` (bf16 for the MoEs), ``remat`` full, KV chunks of 512,
+   on one repeated batch of 2 x 2048 positions of ``SyntheticStream`` (vlm:
+   256 patch embeddings + 1792 tokens; whisper: 1500 frames and 448 tokens):
+   11a dbrx-132b and 11b grok-1-314b (depth cut to 1 layer by memory: see
+   ``FAMILY_TRAIN``), 11c zamba2-1.2b, 11d xlstm-125m, 11e internvl2-1b and
+   11f whisper-small at full depth.  A warm-up step with a hook on every
+   parameter's gradient (each finite and nonzero; grok's unused ``moe.gate``
+   gets none: its moments stay zero and it equals its decayed self), 2 steps
+   timed by the host clock and CUDA events, one under ``torch.profiler``;
+   the loss lower after two updates; the MoE's dropped pairs; peak memory;
+   no flash launch (training takes the chunked attention);
+   g. 11f's trained state (parameters and f32 moments) encoded as a
+   DRC(9,6,3) checkpoint on the card, node 0 lost and restored through the
+   layered repair, every leaf byte-equal;
+12. the paper's two repair demos, ``repro_torch.examples.quickstart`` and
+   ``repair_layering`` (with its Chrome trace and summary written under a
+   temporary directory), through ``main(argv)`` on the card: their own
+   checks, the summary's cross-rack bytes equal to the plans', every GF
+   product on the card.
 
 The build prints ptxas's report of every kernel (registers, spills) and the
 bf16 flash kernel's geometry (tiles, stages, dynamic shared memory, the
@@ -98,8 +119,8 @@ registers ``setmaxnreg`` gives its producer and consumer warpgroups, and its
 TMA boxes), held equal to the wrapper's ``hopper_geometry``.  The
 GF kernel's launches are counted over phases 2-5 (``launches``, comparable
 with earlier runs) and per phase (``launches_by_phase``: 2-5, 7 summed over
-the ranks, 8, 9), the flash kernel's over 6b-6c and 10a-e (and over 9, where it must
-be 0).  Any mismatch or exception exits non-zero.  The last three
+the ranks, 8, 9, 11g, 12), the flash kernel's over 6b-6c and 10a-e (and over
+9 and 11, where it must be 0).  Any mismatch or exception exits non-zero.  The last three
 lines of standard output are the kernels JSON line, the card's name and
 power limit, and the result line.
 """
@@ -128,6 +149,7 @@ from repro_torch.core.codes import make_code  # noqa: E402
 from repro_torch.core.gf_torch import gf_matmul_table  # noqa: E402
 from repro_torch.core.multi_failure import CodeSwitcher, multi_failure_repair  # noqa: E402
 from repro_torch.dist import mesh_run  # noqa: E402
+from repro_torch.examples import quickstart, repair_layering  # noqa: E402
 from repro_torch.dist.collectives import (  # noqa: E402
     plan_to_spmd,
     spmd_node_recovery,
@@ -146,11 +168,13 @@ from repro_torch.models import backbone, mlp  # noqa: E402
 from repro_torch.serve import ServeEngine, make_prefill_step  # noqa: E402
 from repro_torch.storage import ClusterSim  # noqa: E402
 from repro_torch.train import (  # noqa: E402
+    AdamWConfig,
     DataConfig,
     ScheduleConfig,
     SyntheticStream,
     TrainConfig,
     init_train_state,
+    learning_rate,
     make_train_step,
     train_state,
 )
@@ -248,6 +272,20 @@ ENGINE_RTOL = {"ssm": 0.10}
 ENGINE_RTOL_DEFAULT = 0.05
 # the seeded visual and frame embeddings are drawn as the token embedding table is
 STUB_EMBED_STD = 0.02
+# phase 11: every family trained at its published width in bf16, one at a
+# time: (label, arch, layers or None for the config's).  The MoEs' depth is
+# cut by memory: a bf16 state of params, grads and AdamW's bf16 moments is 8
+# bytes a parameter, dbrx's layer 4.49e9 parameters (35.9 GB), grok's 6.53e9
+# (52.2 GB), and the update's f32 temporaries of one slice, the global norm's
+# of the largest leaf (up to 12.9 GB for grok's experts) and the backward's
+# come on top: a second layer does not fit in 80 GB for either
+FAMILY_TRAIN = [("11a", "dbrx-132b", 1), ("11b", "grok-1-314b", 1),
+                ("11c", "zamba2-1.2b", None), ("11d", "xlstm-125m", None),
+                ("11e", "internvl2-1b", None), ("11f", "whisper-small", None)]
+# 2 x 2048 positions a step: vlm 256 patch embeddings + 1792 text tokens,
+# audio 1500 frames through the encoder and the 448-token text context
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_POSITIONS = 2, 2048
+FAMILY_TRAIN_TIMED = 2  # one warm-up step, then 2 timed, then 1 profiled
 
 
 def check(cond: bool, what: str) -> None:
@@ -1182,6 +1220,179 @@ def phase_family(gen: torch.Generator, cfg) -> dict:
     return out, launches
 
 
+def family_train_seq(cfg) -> int:
+    """The stream's text length for 2048 positions (the vlm's patch
+    embeddings come first; whisper's text context is 448)."""
+    if cfg.family == "vlm":
+        return FAMILY_TRAIN_POSITIONS - cfg.vision_tokens
+    if cfg.family == "audio":
+        return WHISPER_TEXT
+    return FAMILY_TRAIN_POSITIONS
+
+
+def phase_family_train(gen: torch.Generator, cfg) -> tuple[dict, dict, int]:
+    """11a-f: ``init_train_state`` and ``make_train_step`` for one family at
+    its published width in bf16, AdamW state in the config's
+    ``opt_state_dtype``, ``remat`` full, KV chunks of 512, one microbatch,
+    phase 9's WSD at peak ``TRAIN_LR`` entered past its warm-up (every step
+    updates), on one repeated batch of the stream: a warm-up step with a hook
+    on every parameter's gradient (under ``obs.tracing`` for the MoE's pair
+    counters), ``FAMILY_TRAIN_TIMED`` timed steps and one under
+    ``torch.profiler``.  Returns the results, the model's training state
+    (for 11g, whisper's only: the caller frees it) and the flash launches."""
+    warm = 2
+    steps = warm + 2 + FAMILY_TRAIN_TIMED
+    tcfg = TrainConfig(optimizer=AdamWConfig(state_dtype=cfg.opt_state_dtype),
+                       schedule=ScheduleConfig(kind="wsd", peak_lr=TRAIN_LR, warmup_steps=warm,
+                                               total_steps=steps),
+                       attn_chunk=TRAIN_CHUNK)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model, opt = init_train_state(gen, cfg, tcfg, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(p.numel() for p in model.parameters())
+    state_bytes = sum(p.numel() * (2 * p.element_size() + 2 * opt["m"][n].element_size())
+                      for n, p in model.named_parameters())
+    seq = family_train_seq(cfg)
+    data = SyntheticStream(cfg, DataConfig(seed=SEED, batch=FAMILY_TRAIN_BATCH, seq=seq),
+                           device=DEVICE).batch_at(0)
+    positions = FAMILY_TRAIN_BATCH * (seq + (cfg.vision_tokens if cfg.family == "vlm" else 0))
+    step_fn = make_train_step(cfg, tcfg)
+    named = dict(model.named_parameters())
+    unused = [n for n in named if cfg.moe and cfg.mlp_act != "swiglu" and n.endswith("moe.gate")]
+    before_unused = {n: named[n].detach().clone() for n in unused}
+    flash_attention.launches = 0  # this phase's launches: there must be none
+    norms: dict[str, torch.Tensor] = {}
+    hooks = [p.register_hook(lambda g, name=name: norms.__setitem__(
+        name, torch.linalg.vector_norm(g.float()))) for name, p in named.items()]
+    try:
+        with obs.tracing(cfg.name) as tr:
+            rows = [timed_step(step_fn, model, opt, data, warm)]
+    finally:
+        for h in hooks:
+            h.remove()
+    check(set(norms) == set(named) - set(unused),
+          f"{cfg.name}: gradients of {sorted(set(named) - set(unused) - set(norms))[:5]} "
+          f"missing, or of an unused parameter present")
+    bad = [n for n, v in norms.items() if not bool(torch.isfinite(v)) or float(v) == 0.0]
+    check(not bad, f"{cfg.name}: first-step gradients not finite or zero for {bad[:5]}")
+    wd = tcfg.optimizer.weight_decay
+    for n in unused:  # a zero gradient: AdamW's decay alone, in f32, rounded to bf16
+        was = before_unused.pop(n)
+        decayed = (was.float() - learning_rate(warm, tcfg.schedule) * (wd * was.float())
+                   ).to(was.dtype)
+        check(float(opt["m"][n].abs().max()) == 0.0 and float(opt["v"][n].abs().max()) == 0.0,
+              f"{cfg.name}: {n}'s gradient was not zero")
+        check(torch.equal(named[n].detach(), decayed), f"{cfg.name}: {n} is not its decayed self")
+    del before_unused
+    out = {"arch": cfg.name, "family": cfg.family, "layers": cfg.n_layers, "params": n_params,
+           "state_bytes_reckoned": state_bytes, "opt_state_dtype": cfg.opt_state_dtype,
+           "remat": cfg.remat, "attn_chunk": TRAIN_CHUNK, "microbatches": 1,
+           "batch": FAMILY_TRAIN_BATCH, "positions": positions,
+           **{key: list(val.shape) for key, val in data.items()}, "init_s": init_s,
+           "unused_zero_grad": unused, "grad_norm_least": min(
+               ([n, float(v)] for n, v in norms.items()), key=lambda kv: kv[1])}
+    del norms
+    if cfg.moe:  # counted at every forward of the MoE, remat's recompute included
+        out["moe_pairs"] = {"routed": tr.counter_value("moe.pairs.routed"),
+                            "dropped": tr.counter_value("moe.pairs.dropped")}
+        check(out["moe_pairs"]["routed"] > 0, f"{cfg.name}: no MoE pair routed")
+    for i in range(FAMILY_TRAIN_TIMED):
+        rows.append(timed_step(step_fn, model, opt, data, warm + 1 + i))
+    prof = profile_device(lambda: rows.append(timed_step(step_fn, model, opt, data, steps - 1)),
+                          steps=1, warmup=False, top=8)
+    losses = [r["loss"] for r in rows]
+    check(all(math.isfinite(x) for x in losses), f"{cfg.name}: losses {losses}")
+    check(losses[2] < losses[0], f"{cfg.name}: the loss did not fall over two updates: {losses}")
+    flash = flash_attention.launches
+    check(flash == 0, f"{cfg.name}: the train step launched the flash kernel {flash} times")
+    timed = rows[1:1 + FAMILY_TRAIN_TIMED]
+    host_ms = float(np.median([r["host_ms"] for r in timed]))
+    out.update({"steps": rows, "step_host_ms_median": host_ms,
+                "step_cuda_ms_median": float(np.median([r["cuda_ms"] for r in timed])),
+                "positions_per_s": positions / host_ms * 1e3,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "max_memory_reserved": torch.cuda.max_memory_reserved(),
+                "profile": prof})
+    state = train_state(model, opt) if cfg.family == "audio" else None
+    del model, opt, step_fn, data, named
+    torch.cuda.empty_cache()
+    return out, state, flash
+
+
+def phase_state_checkpoint(state: dict) -> dict:
+    """11g: a trained state (whisper-small's parameters and f32 moments)
+    encoded as a DRC(9,6,3) checkpoint on the card, node 0 lost and restored
+    through the layered repair: every leaf byte-equal."""
+    gf_matmul_batched.launches = 0
+    with obs.tracing("11g") as tr:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt = encode_state(state, family="DRC", n=9, k=6, r=3, device=DEVICE)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t
+        gf_encode = sum(sp.dur_us for sp in tr.spans_named("kernel.gf_matmul")) / 1e3
+        t = time.perf_counter()
+        got, report = restore_state(ckpt, state, available=set(range(1, 9)))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        gf_restore = sum(sp.dur_us for sp in tr.spans_named("kernel.gf_matmul")) / 1e3 - gf_encode
+        calls = {path: tr.counter_value("kernel.gf_matmul.calls", path=path)
+                 for path in ("cuda", "ref")}
+    launches = gf_matmul_batched.launches
+    plan_cross = make_code("DRC", 9, 6, 3).repair_plan(0).traffic_blocks()["cross_rack_blocks"]
+    check(report.mode == "repair" and report.cross_rack_blocks == plan_cross,
+          f"11g: restore {report}, the plan's cross-rack blocks {plan_cross}")
+    want, got_leaves = _leaves(state), _leaves(got)
+    check(len(want) == len(got_leaves) and all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+        for a, b in zip(want, got_leaves)), "11g: a restored leaf is not byte-equal")
+    check(calls["cuda"] > 0 and calls["ref"] == 0, f"11g: GF products by path {calls}")
+    check(launches > 0, "11g: the GF kernel was launched no time")
+    out = {"leaves": len(want), "state_bytes": ckpt.total_bytes,
+           "stripe_bytes": sum(p.numel() for p in ckpt.payloads.values()),
+           "mode": report.mode, "cross_rack_blocks": report.cross_rack_blocks,
+           "plan_cross_rack_blocks": plan_cross, "gf_launches": launches, "gf_calls": calls,
+           "encode_host_s": encode_s, "encode_gf_device_ms": gf_encode,
+           "restore_host_s": restore_s, "restore_gf_device_ms": gf_restore}
+    del ckpt, got
+    return out
+
+
+def phase_demos() -> tuple[dict, int]:
+    """12: the paper's two repair demos through their ``main(argv)`` on the
+    card: quickstart at its 64 KiB subblocks, and the layering walk-through
+    with its trace written under a temporary directory, its summary's
+    cross-rack bytes held to the plans'.  Returns the results and the GF
+    launches."""
+    gf_matmul_batched.launches = 0
+    quick = quickstart.main(["--device", DEVICE])
+    quick_launches = gf_matmul_batched.launches
+    with tempfile.TemporaryDirectory() as d:
+        layering = repair_layering.main(["--device", DEVICE,
+                                         "--trace-out", os.path.join(d, "trace.json")])
+        with open(layering["summary"]) as f:
+            counters = json.load(f)["counters"]
+    launches = gf_matmul_batched.launches
+    want = sum(make_code(*spec).repair_plan(0).traffic_blocks()["cross_rack_blocks"]
+               * make_code(*spec).alpha * repair_layering.SUB_BYTES
+               for spec in repair_layering.TRACED_CODES)
+    cross = sum(counters["repair.bytes.cross_rack"].values())
+    check(abs(cross - want) < 0.5, f"12: traced cross-rack bytes {cross} != the plans' {want}")
+    check(set(counters["kernel.gf_matmul.calls"]) == {"path=cuda"},
+          f"12: GF products by path {counters['kernel.gf_matmul.calls']}")
+    check(quick["restore_mode"] == "repair" and quick_launches > 0,
+          f"12: quickstart restore {quick['restore_mode']}, {quick_launches} GF launches")
+    check(launches > quick_launches, "12: the layering demo launched the GF kernel no time")
+    return {"quickstart": {k: quick[k] for k in ("sub_bytes", "cross_rack", "restore_mode")},
+            "quickstart_gf_launches": quick_launches,
+            "layering_cross_rack_bytes": cross, "plans_cross_rack_bytes": want,
+            "layering_codes": layering["codes"],
+            "layering_gf_launches": launches - quick_launches}, launches
+
+
 def ptxas_report(log: str) -> list[dict]:
     """ptxas's lines for each kernel of one build log: the (mangled) entry,
     its registers at entry, spill stores and loads, and static shared memory.
@@ -1347,6 +1558,31 @@ def main() -> int:
         family_flash += [{"arch": arch, **case} for case in fam["flash_cases"]]
         print(f"[{label} {arch}] {smi}: {json.dumps(fam)}")
 
+    family_train = {}
+    whisper_state = None
+    for label, arch, layers in FAMILY_TRAIN:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        check(cfg.remat == "full", f"{cfg.name} trains with remat {cfg.remat}")
+        t = time.perf_counter()
+        fam, state, family_train[label] = phase_family_train(gen, cfg)
+        phases[f"train {label}"] = {"host_s": time.perf_counter() - t}
+        print(f"[{label} train {arch}] {smi}: {json.dumps(fam)}")
+        if state is not None:
+            whisper_state = state
+    check(whisper_state is not None, "11f gave no training state for 11g")
+    t = time.perf_counter()
+    ck11 = phase_state_checkpoint(whisper_state)
+    phases["train 11g"] = {"host_s": time.perf_counter() - t}
+    print(f"[11g checkpoint whisper-small] {smi}: {json.dumps(ck11)}")
+    del whisper_state
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    demos, demo_launches = phase_demos()
+    phases["demos"] = {"host_s": time.perf_counter() - t}
+    print(f"[12 demos] {json.dumps(demos)}")
+
     head = k1["timings"][0]  # DRC(9,6,3) full-width parity encode
     kernels = {"kernels": [{
         "name": "gf_matmul",
@@ -1355,7 +1591,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/gf_matmul.py:110",
         "launches": launches,
         "launches_by_phase": {"2-5": launches, "7": mesh_launches, "8": eval_launches,
-                              "9": train_launches},
+                              "9": train_launches, "11g": ck11["gf_launches"],
+                              "12": demo_launches},
         "max_abs_err": kc.max_abs_err,
         "mismatched_bytes": kc.mismatched,
         "ms": head["ms"],
@@ -1377,7 +1614,8 @@ def main() -> int:
         "launches": flash_launches + sum(family_launches.values()),
         "launches_by_phase": {"6b-6c": flash_launches, "9": train_flash_launches,
                               **{f"{label} {arch}": family_launches[label]
-                                 for label, arch, _ in FAMILIES}},
+                                 for label, arch, _ in FAMILIES},
+                              "11": sum(family_train.values())},
         "max_abs_err": fl["max_abs_err"],
         "rel_fro_err": fl["rel_fro_err"],
         "max_err_over_scale": fl["max_err_over_scale"],

@@ -92,7 +92,9 @@ def _ssd_chunked(x, dt, a, b, c, chunk: int) -> torch.Tensor:
     # intra-chunk: a causal "attention" under decay weights
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,q,k,H)
     causal = torch.tril(torch.ones((ck, ck), dtype=torch.bool, device=x.device))
-    w = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    # exp(-inf) above the diagonal rather than a masked exp(seg), which
+    # overflows past an 88-nat decay and gives NaN gradients (xlstm.py)
+    w = torch.exp(torch.where(causal[None, None, :, :, None], seg, float("-inf")))
     scores = torch.einsum("bnqs,bnks->bnqk", cr, br)  # (B,nc,q,k)
     m_qkh = (scores[..., None] * w * dtr[:, :, None, :, :]).to(x.dtype)
     y_intra = _f32("bnqkh,bnkhp->bnqhp", m_qkh, xr)

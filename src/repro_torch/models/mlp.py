@@ -135,15 +135,44 @@ def _combine_local(ys: torch.Tensor, info, n: int) -> torch.Tensor:
     return ys.new_zeros((n, d)).index_add_(0, t_sorted, contrib)
 
 
+class _BmmF32(torch.autograd.Function):
+    """``aten::bmm.dtype`` with a gradient: PyTorch defines none for it.
+
+    Forward: the tensor cores' product of the low-precision inputs, summed
+    in f32.  Backward: each input's gradient as the reference's transpose of
+    ``einsum(..., preferred_element_type=f32)`` computes it, the f32
+    cotangent times the other input upcast, in f32, cast to the input's
+    dtype; one batch entry (expert) at a time, so an upcast operand is never
+    larger than one expert's weights."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        ga = torch.empty_like(a) if ctx.needs_input_grad[0] else None
+        gb = torch.empty_like(b) if ctx.needs_input_grad[1] else None
+        for e in range(g.shape[0]):
+            if ga is not None:
+                ga[e] = g[e] @ b[e].float().T
+            if gb is not None:
+                gb[e] = a[e].float().T @ g[e]
+        return ga, gb
+
+
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``einsum(..., preferred_element_type=f32)``: a batched product with an
     f32 result.  On a CUDA device bf16 inputs stay bf16 and the tensor cores
-    accumulate into f32 (``aten::bmm.dtype``); the CPU build has no such
-    kernel, so there the inputs are upcast, which is the same arithmetic."""
+    accumulate into f32 (``_BmmF32``, which gives the product its gradient);
+    the CPU build has no such kernel, so there the inputs are upcast, which
+    is the same arithmetic."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.device.type == "cuda":
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _BmmF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 
 

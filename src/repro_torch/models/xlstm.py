@@ -64,7 +64,12 @@ def _mlstm_chunked(q, k, v, log_f, log_i, chunk: int) -> torch.Tensor:
 
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # decay q<-k
     causal = torch.tril(torch.ones((ck, ck), dtype=torch.bool, device=q.device))
-    w = torch.where(causal[None, None, :, :, None], torch.exp(seg + li[:, :, None, :, :]), 0.0)
+    # exp of -inf above the diagonal, not exp(seg) masked after: seg there is
+    # -(the decay between k and q), whose exp overflows past an 88-nat decay,
+    # and the masked inf gives 0 * inf = NaN gradients (the reference's
+    # ``where(causal, exp(...), 0)`` has that fault); the forward is the same
+    w = torch.exp(torch.where(causal[None, None, :, :, None], seg + li[:, :, None, :, :],
+                              float("-inf")))
     scores = torch.einsum("bnqhd,bnkhd->bnqkh", qr, kr)
     m_qkh = (scores * w).to(q.dtype)
     y_intra = _f32("bnqkh,bnkhd->bnqhd", m_qkh, vr)

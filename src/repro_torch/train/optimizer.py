@@ -51,6 +51,23 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
+# ``adamw_update`` walks a leaf of more elements than this along its first
+# axis, in slices of at least one row, so its f32 temporaries (about 20 bytes
+# an element) stay near 2.7 GB or one row, whichever is larger: a whole leaf
+# of grok-1's experts would need 32 GB of them.  The update is elementwise
+# after the global norm, so the slices give the same bits as the whole leaf.
+UPDATE_SLICE = 2**27
+
+
+def _leaf_slices(p: torch.Tensor):
+    """Index ranges along ``p``'s first axis, each of at most
+    ``UPDATE_SLICE`` elements but never less than one row."""
+    if p.dim() == 0 or p.numel() <= UPDATE_SLICE:
+        return [...]
+    rows = max(1, UPDATE_SLICE // (p.numel() // p.shape[0]))
+    return [slice(i, i + rows) for i in range(0, p.shape[0], rows)]
+
+
 @torch.no_grad()
 def adamw_update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
                  state: dict, lr, cfg: AdamWConfig):
@@ -71,16 +88,17 @@ def adamw_update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.T
     bc1 = 1 - torch.pow(torch.tensor(cfg.b1, **f32), count)
     bc2 = 1 - torch.pow(torch.tensor(cfg.b2, **f32), count)
     lr = torch.as_tensor(lr, dtype=torch.float32)
-    for name, p in params.items():
-        m, v = state["m"][name], state["v"][name]
-        g = grads[name].float() * scale
-        m_new = m.float() * cfg.b1 + g * (1 - cfg.b1)
-        v_new = v.float() * cfg.b2 + g * (1 - cfg.b2) * g
-        del g
-        step = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
-        step += p.float() * cfg.weight_decay
-        m.copy_(m_new)
-        v.copy_(v_new)
-        del m_new, v_new
-        p.copy_(p.float() - lr * step)
+    for name, leaf in params.items():
+        for sl in _leaf_slices(leaf):
+            p, m, v = leaf[sl], state["m"][name][sl], state["v"][name][sl]
+            g = grads[name][sl].float() * scale
+            m_new = m.float() * cfg.b1 + g * (1 - cfg.b1)
+            v_new = v.float() * cfg.b2 + g * (1 - cfg.b2) * g
+            del g
+            step = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps)
+            step += p.float() * cfg.weight_decay
+            m.copy_(m_new)
+            v.copy_(v_new)
+            del m_new, v_new
+            p.copy_(p.float() - lr * step)
     return params, state, gnorm

@@ -71,8 +71,12 @@ def _split_micro(batch: dict, n: int) -> list[dict]:
 
 
 def _value_and_grad(model, params: list, cfg: ArchConfig, tcfg: TrainConfig, batch: dict):
+    """The loss, its metrics and one gradient per parameter.  A parameter the
+    loss never reads (a GeLU MoE's ``moe.gate``) gets zeros of its own shape
+    and dtype, as ``jax.grad`` gives it: it counts in the global norm and
+    weight decay still moves it."""
     loss, metrics = loss_fn(model, cfg, tcfg, batch)
-    grads = torch.autograd.grad(loss, params)
+    grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 

@@ -36,6 +36,7 @@ from repro_torch.models import mlp as tmlp
 from repro_torch.models import xlstm as txl
 from repro_torch.models.weights import named_arrays, params_from_jax
 from repro_torch.serve import ServeEngine, make_prefill_step
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FAMILIES = ["dbrx_132b", "grok_1_314b", "xlstm_125m", "zamba2_1p2b", "internvl2_1b",
             "whisper_small"]

@@ -32,6 +32,7 @@ from repro_torch.train import (
     checkpoint,
     fault_tolerance,
     init_train_state,
+    loss_fn,
     make_train_step,
     train_state,
 )
@@ -456,3 +457,96 @@ def test_moe_expert_products_accumulate_in_f32_on_card(dev):
     got = mlp._bmm_f32(a, b)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, torch.bmm(a.float(), b.float()), atol=1e-3, rtol=1e-4)
+
+
+# training, every family: grok too (its GeLU experts never read moe.gate)
+TRAIN_SMOKES = FAMILY_SMOKES + ["grok_1_314b"]
+# the card's bf16 loss against the CPU's from the same state and batch: both
+# round activations to bf16 after every product but sum in other orders
+# (tensor-core tiles, the MoE combine's atomics), 2^-7 relative a rounding;
+# the loss, a mean over 1,024 positions, moves far less than one logit
+TRAIN_LOSS_RTOL = 1e-2
+# a bf16 gradient through the expert products, the card's path against the
+# upcast one: four bf16 roundings of 2^-8 each (tests/test_torch_family_train.py)
+BF16_GRAD_RTOL = 2.0**-5
+
+
+def _train_smoke(arch):
+    base = configs.get_smoke(arch)
+    return dataclasses.replace(base, d_model=64 * base.n_heads, remat="full")
+
+
+def _unused(cfg, name):
+    return cfg.moe is not None and cfg.mlp_act != "swiglu" and name.endswith("moe.gate")
+
+
+@pytest.mark.parametrize("arch", TRAIN_SMOKES)
+def test_family_bf16_train_step_on_card(dev, arch):
+    """One bf16 train step (remat ``full``, two mLSTM chunks for xlstm, where
+    the decay overflows f32 above the diagonal): a finite gradient for every
+    parameter, nonzero but for grok's unused ``moe.gate`` (exactly zero: the
+    step leaves it at AdamW's decay alone, which at this learning rate rounds
+    back to the same bf16 values), no flash launch, and the loss within
+    ``TRAIN_LOSS_RTOL`` of the CPU's from the same state and batch."""
+    cfg = _train_smoke(arch)
+    tcfg = TrainConfig(attn_chunk=64)
+    model, opt = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, tcfg,
+                                  device="cuda")
+    cpu_model, cpu_opt = init_train_state(torch.Generator().manual_seed(1), cfg, tcfg,
+                                          device="cpu")
+    checkpoint.copy_state_(train_state(cpu_model, cpu_opt), train_state(model, opt))
+    batch = SyntheticStream(cfg, DataConfig(batch=2, seq=512), device="cuda").batch_at(0)
+    with torch.no_grad():
+        want, _ = loss_fn(cpu_model, cfg, tcfg, {k: v.cpu() for k, v in batch.items()})
+    named = dict(model.named_parameters())
+    before = {n: p.detach().clone() for n, p in named.items() if _unused(cfg, n)}
+    norms = {}
+    hooks = [p.register_hook(lambda g, name=name: norms.__setitem__(
+        name, float(torch.linalg.vector_norm(g.float())))) for name, p in named.items()]
+    launches = flash_attention.launches
+    try:
+        _, _, m = make_train_step(cfg, tcfg)(model, opt, batch, 0)
+    finally:
+        for h in hooks:
+            h.remove()
+    assert flash_attention.launches == launches
+    assert set(norms) == {n for n in named if not _unused(cfg, n)}
+    assert all(np.isfinite(v) and v > 0 for v in norms.values()), norms
+    assert (len(before) > 0) == (arch == "grok_1_314b")
+    wd = tcfg.optimizer.weight_decay
+    for name, was in before.items():  # no gradient: weight decay alone, in f32, rounded
+        assert float(opt["m"][name].abs().max()) == 0.0
+        decayed = (was.float() - m["lr"] * (wd * was.float())).to(was.dtype)
+        assert torch.equal(named[name].detach(), decayed)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    assert float(m["loss"]) == pytest.approx(float(want), rel=TRAIN_LOSS_RTOL)
+
+
+@pytest.mark.parametrize("arch", ["dbrx_132b", "grok_1_314b"])
+def test_moe_expert_products_gradient_on_card_matches_the_upcast_path(dev, arch, monkeypatch):
+    """The card's expert products (``_BmmF32``: bf16 tensor cores, f32 sums,
+    a backward of f32 products) against the CPU build's form (the inputs
+    upcast, autograd's own backward) on the same card, model and batch:
+    every gradient within ``BF16_GRAD_RTOL`` of its largest entry."""
+    from repro_torch.models import mlp
+
+    cfg = dataclasses.replace(_train_smoke(arch), remat="none")
+    tcfg = TrainConfig(attn_chunk=64)
+    model, _ = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, tcfg,
+                                device="cuda")
+    batch = SyntheticStream(cfg, DataConfig(batch=2, seq=256), device="cuda").batch_at(0)
+    params = list(model.parameters())
+
+    def grads():
+        loss, _ = loss_fn(model, cfg, tcfg, batch)
+        return loss, torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+
+    card_loss, card = grads()
+    monkeypatch.setattr(mlp, "_bmm_f32", lambda a, b: torch.bmm(a.float(), b.float()))
+    up_loss, upcast = grads()
+    assert float(card_loss) == pytest.approx(float(up_loss), rel=1e-3)
+    for (name, _), a, b in zip(model.named_parameters(), card, upcast):
+        assert bool(torch.isfinite(a).all()), name
+        scale = float(b.float().abs().max())
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=BF16_GRAD_RTOL * max(scale, 1e-30), msg=name)

@@ -38,7 +38,8 @@ def test_port_modules_are_found():
                  "repro_torch.train.train_step", "repro_torch.launch.train",
                  "repro_torch.examples.train_e2e", "repro_torch.examples.elastic_recovery",
                  "repro_torch.models.mamba2", "repro_torch.models.xlstm",
-                 "repro_torch.examples.serve_demo"):
+                 "repro_torch.examples.serve_demo", "repro_torch.examples.quickstart",
+                 "repro_torch.examples.repair_layering"):
         assert must in names
 
 

@@ -21,6 +21,7 @@ from repro.models import backbone as rbb
 from repro_torch import configs as tconfigs
 from repro_torch.models import backbone as tbb
 from repro_torch.models.weights import named_arrays, params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DENSE = ["starcoder2_3b", "starcoder2_7b", "minicpm_2b", "command_r_35b"]
 

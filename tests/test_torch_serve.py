@@ -24,6 +24,7 @@ from repro_torch import configs as tconfigs
 from repro_torch import obs as tobs
 from repro_torch.models.weights import params_from_jax
 from repro_torch.serve import ServeEngine, make_decode_step, make_prefill_step, sample_token
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DENSE = ["starcoder2_3b", "starcoder2_7b", "minicpm_2b", "command_r_35b"]
 

@@ -7,7 +7,7 @@ differs.  Tolerances: learning rates rtol 1e-6 (each library's own f32
 ``cos``/``exp``); AdamW outputs rtol 1e-6 in f32 and one bf16 rounding step
 (2^-7 relative) for bf16 moments; the cross-entropy's value rtol 1e-5 and
 its gradients atol 1e-5; the model's loss rtol 1e-5 and gradients atol 1e-6
-with rtol 1e-5; one train step's parameters atol 2e-5, the tolerance of
+with rtol 1e-5 (xlstm's atol 5e-6, ``GRAD_ATOL``); one train step's parameters atol 2e-5, the tolerance of
 ``tests/test_train.py::test_microbatched_step_matches_full_batch``, and its
 AdamW moments at the gradients' tolerance carried through (m atol 1e-7,
 v atol 1e-8).
@@ -34,8 +34,13 @@ from repro_torch.models import attention as tattn
 from repro_torch.models.weights import named_arrays, opt_state_from_jax, params_from_jax
 from repro_torch.train import optimizer as topt
 from repro_torch.train import xent as txent
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-GRAD_ARCHS = ["starcoder2_3b", "minicpm_2b", "command_r_35b"]
+GRAD_ARCHS = ["starcoder2_3b", "minicpm_2b", "command_r_35b", "dbrx_132b", "grok_1_314b",
+              "xlstm_125m", "zamba2_1p2b", "internvl2_1b", "whisper_small"]
+# xlstm's f32 gradient is ill-conditioned: the reference's own lies more than
+# 1e-6 from an f64 evaluation (tests/test_torch_family_train.py shows it)
+GRAD_ATOL = {"xlstm_125m": 5e-6}
 
 
 def _t(a) -> torch.Tensor:
@@ -51,7 +56,13 @@ def _pair(arch, dtype="float32", seed=0, **overrides):
 
 
 def _torch_batch(batch):
-    return {k: _t(np.asarray(v)) for k, v in batch.items()}
+    """The reference's batch as tensors; bf16 side inputs (``vis_embeds``,
+    ``frames``) go through f32, which holds every bf16 value exactly."""
+    out = {}
+    for k, v in batch.items():
+        a = np.asarray(v)
+        out[k] = _t(a.astype(np.float32)).to(torch.bfloat16) if a.dtype.name == "bfloat16" else _t(a)
+    return out
 
 
 # ------------------------------------------------------------------ schedule
@@ -241,14 +252,17 @@ def test_loss_and_grad_tree_match_reference(arch, fused):
         params, cfg_r, rtrain.TrainConfig(**kw), batch)
     got, aux_t = ttrain.loss_fn(model, cfg_t, ttrain.TrainConfig(**kw), _torch_batch(batch))
     names = [n for n, _ in model.named_parameters()]
-    grads_t = torch.autograd.grad(got, [p for _, p in model.named_parameters()])
+    # grok's GeLU experts never read moe.gate: a zero gradient, as jax.grad's
+    grads_t = torch.autograd.grad(got, [p for _, p in model.named_parameters()],
+                                  allow_unused=True, materialize_grads=True)
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
     for key in ("xent", "moe_aux"):
         np.testing.assert_allclose(aux_t[key].item(), float(aux_r[key]), rtol=1e-5)
     want_g = named_arrays(cfg_t, jax.tree.map(np.asarray, grads_r))
     assert sorted(want_g) == sorted(names)
     for name, g in zip(names, grads_t):
-        np.testing.assert_allclose(g.numpy(), want_g[name], atol=1e-6, rtol=1e-5, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), want_g[name], atol=GRAD_ATOL.get(arch, 1e-6),
+                                   rtol=1e-5, err_msg=name)
 
 
 @pytest.mark.parametrize("remat", ["full", "dots"])

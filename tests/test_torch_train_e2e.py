@@ -21,6 +21,7 @@ from repro_torch.train import (
     train_state,
 )
 from repro_torch.train.checkpoint import CheckpointManager
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LAUNCH = ["--arch", "starcoder2-3b", "--smoke", "--device", "cpu", "--batch", "4", "--seq", "64",
           "--lr", "1e-2", "--log-every", "100"]
