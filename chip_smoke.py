@@ -111,7 +111,22 @@ drives the main path through the entry points a user calls, at the paper's
    ``repair_layering`` (with its Chrome trace and summary written under a
    temporary directory), through ``main(argv)`` on the card: their own
    checks, the summary's cross-rack bytes equal to the plans', every GF
-   product on the card.
+   product on the card;
+13. the sharded prefill, after every earlier model is freed:
+   ``make_prefill_step(cfg, mesh=, rules=)`` through ``dist.model_run`` on 8
+   ``gloo`` ranks sharing this card as a (data 2, model 4) mesh, one model at
+   a time: 13a StarCoder2-3B at full width and depth, ``tp`` rules, 2 x 4096
+   tokens (the flash kernel on each rank's 6 of 24 query heads; the 2 kv
+   heads do not divide 4 and stay whole); 13b dbrx-132b (2 of 40 layers,
+   ``tp``: expert parallel, 16 experts over 4) and 13c grok-1-314b (1 of 64,
+   ``tp_sp`` with ``sharding="ffn"``: every expert's FFN shard on every rank,
+   tokens sequence-parallel), each at a drop-free capacity on 2 x 1024 and
+   at its config's on 2 x 2048.  Rank 0's logits are held to one process's
+   on the same seeded weights (5% of the largest logit), every rank's first
+   flash call's local shards to the plain version, the MoE's ``all_to_all``
+   to 2 a layer (13b) and none (13c); the pairs dropped, each rank's peak
+   memory, collectives by kind and bytes staged through the host, and the
+   slowest rank's time (host-staged ``gloo``, not NCCL) are printed.
 
 The build prints ptxas's report of every kernel (registers, spills) and the
 bf16 flash kernel's geometry (tiles, stages, dynamic shared memory, the
@@ -119,10 +134,11 @@ registers ``setmaxnreg`` gives its producer and consumer warpgroups, and its
 TMA boxes), held equal to the wrapper's ``hopper_geometry``.  The
 GF kernel's launches are counted over phases 2-5 (``launches``, comparable
 with earlier runs) and per phase (``launches_by_phase``: 2-5, 7 summed over
-the ranks, 8, 9, 11g, 12), the flash kernel's over 6b-6c and 10a-e (and over
-9 and 11, where it must be 0).  Any mismatch or exception exits non-zero.  The last three
-lines of standard output are the kernels JSON line, the card's name and
-power limit, and the result line.
+the ranks, 8, 9, 11g, 12), the flash kernel's over 6b-6c, 10a-e and 13
+(summed over the ranks; and over 9 and 11, where it must be 0).  Any
+mismatch or exception exits non-zero.  The last three lines of standard
+output are the kernels JSON line, the card's name and power limit, and the
+result line.
 """
 from __future__ import annotations
 
@@ -148,7 +164,7 @@ from repro_torch.core.code_base import drc_min_cross_rack_blocks  # noqa: E402
 from repro_torch.core.codes import make_code  # noqa: E402
 from repro_torch.core.gf_torch import gf_matmul_table  # noqa: E402
 from repro_torch.core.multi_failure import CodeSwitcher, multi_failure_repair  # noqa: E402
-from repro_torch.dist import mesh_run  # noqa: E402
+from repro_torch.dist import mesh_run, model_run  # noqa: E402
 from repro_torch.examples import quickstart, repair_layering  # noqa: E402
 from repro_torch.dist.collectives import (  # noqa: E402
     plan_to_spmd,
@@ -286,6 +302,26 @@ FAMILY_TRAIN = [("11a", "dbrx-132b", 1), ("11b", "grok-1-314b", 1),
 # audio 1500 frames through the encoder and the 448-token text context
 FAMILY_TRAIN_BATCH, FAMILY_TRAIN_POSITIONS = 2, 2048
 FAMILY_TRAIN_TIMED = 2  # one warm-up step, then 2 timed, then 1 profiled
+# phase 13: the sharded prefill over a (data 2, model 4) mesh of 8 gloo ranks
+# on this one card: (label, arch, layers or None, rules, MoE sharding or
+# None).  dbrx is cut to 2 of 40 layers (7.75e9 parameters, 15.5 GB in bf16,
+# held over model and replicated over data: about 31 GB across the ranks),
+# grok to 1 of 64 (6.53e9, about 26 GB); the ranks build the seeded model
+# whole in rounds (as many at once as half the card holds) and keep their
+# blocks
+SHARDED = [("13a", "starcoder2-3b", None, "tp", None), ("13b", "dbrx-132b", 2, "tp", None),
+           ("13c", "grok-1-314b", 1, "tp_sp", "ffn")]
+SHARDED_MESH = (2, 4)
+SHARDED_DENSE = (2, 4096)  # 13a's prefill: 2 x 4096 tokens (its window)
+# the MoEs: rank 0's logits are held to one process's at a capacity factor of
+# E / top_k, where every expert takes every token (none is dropped, here or
+# there: each rank counts capacity over its own tokens, so at the config's
+# capacity the drops differ from one process's), on 2 x 1024 tokens: the
+# drop-free expert activations are E / (capacity_factor * top_k) times the
+# config's, on 8 ranks at once.  Then the config's capacity on 2 x 2048, for
+# the pairs it drops and the time
+SHARDED_MOE_PARITY = (2, 1024)
+SHARDED_MOE = (2, 2048)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1361,6 +1397,102 @@ def phase_state_checkpoint(state: dict) -> dict:
     return out
 
 
+def sharded_cases() -> list[tuple[str, str, model_run.Case]]:
+    """13's runs: (label, ``parity`` or ``config``, case), in order; the
+    runs of one model follow each other, so the ranks build it once."""
+    out = []
+    for label, arch, layers, mode, sharding in SHARDED:
+        base = dict(arch=arch, mode=mode, mesh=SHARDED_MESH, layers=layers,
+                    moe_sharding=sharding, seed=SEED)
+        moe = get_config(arch).moe
+        if moe is None:
+            b, s = SHARDED_DENSE
+            out.append((label, "parity", model_run.Case(**base, batch=b, seq=s)))
+            continue
+        b, s = SHARDED_MOE_PARITY
+        out.append((label, "parity", model_run.Case(
+            **base, batch=b, seq=s, capacity_factor=moe.num_experts / moe.top_k)))
+        b, s = SHARDED_MOE
+        out.append((label, "config", model_run.Case(**base, batch=b, seq=s)))
+    return out
+
+
+def phase_sharded() -> tuple[dict, int]:
+    """13: the sharded prefill, ``make_prefill_step(cfg, mesh=, rules=)``,
+    through ``dist.model_run`` on 8 gloo ranks sharing this card.  Each
+    parity run's rank 0 logits are held to one process's on the same seeded
+    weights (``make_prefill_step`` without a mesh, here, before the ranks
+    start: its flash launches are a yardstick and are not counted), within 5%
+    of the largest logit, as 6b; every rank's first flash call's local shards
+    are held to the plain version at bf16's 3e-2; the MoE's own
+    ``all_to_all`` are 2 a layer for dbrx (EP) and none for grok (TP); the
+    pairs dropped are none at the drop-free capacity and counted at the
+    config's.  Returns the results and the flash launches, summed over the
+    ranks."""
+    cases = sharded_cases()
+    refs = {}
+    before = flash_attention.launches
+    for label, kind, case in cases:
+        if kind != "parity":
+            continue
+        model = model_run.seeded_model(case, DEVICE)
+        step = make_prefill_step(model_run.case_config(case), device=DEVICE)
+        with obs.tracing("13 reference") as tr:
+            refs[label] = step(model, {"tokens": torch.from_numpy(model_run.case_tokens(case))})
+            refs[label] = refs[label].float().cpu()
+        check(tr.counter_value("moe.pairs.dropped") == 0, f"{label}: one process dropped pairs")
+        del model, step
+        torch.cuda.empty_cache()
+    flash_attention.launches = before
+    with tempfile.TemporaryDirectory() as d:
+        rows = model_run.run([case for _, _, case in cases], workdir=d, device=DEVICE)
+    out, launches = {}, 0
+    for (label, kind, case), row in zip(cases, rows):
+        cfg = model_run.case_config(case)
+        got = torch.from_numpy(row["logits"])
+        check(bool(torch.isfinite(got).all()), f"{label} {kind}: non-finite logits")
+        check(tuple(got.shape) == (case.batch, cfg.padded_vocab),
+              f"{label} {kind}: logits of shape {tuple(got.shape)}")
+        ranks = row["ranks"]
+        res = {"arch": case.arch, "layers": cfg.n_layers, "rules": case.mode,
+               "mesh": list(case.mesh), "tokens": [case.batch, case.seq],
+               "capacity_factor": cfg.moe.capacity_factor if cfg.moe else None,
+               "gloo_host_staged_ms_slowest_rank": row["ms"],
+               "ms_by_rank": [r["ms"] for r in ranks],
+               "build_s_by_rank": [r["build_s"] for r in ranks],
+               "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
+               "host_staged_bytes_by_rank": [r["host_staged_bytes"] for r in ranks],
+               "collectives_rank0": ranks[0]["collectives"],
+               "moe_collectives_rank0": ranks[0]["moe_collectives"],
+               "flash_launches": row["flash_launches"],
+               "flash_max_abs_err": max(r["flash_max_abs_err"] for r in ranks),
+               "flash_shape_rank0": ranks[0]["flash_shape"]}
+        check(all(r["flash_launches"] == cfg.n_layers for r in ranks),
+              f"{label} {kind}: flash launches by rank {[r['flash_launches'] for r in ranks]}")
+        check(res["flash_max_abs_err"] <= FLASH_ATOL[torch.bfloat16],
+              f"{label} {kind}: the flash kernel on local shards is "
+              f"{res['flash_max_abs_err']} from its plain version")
+        launches += row["flash_launches"]
+        if cfg.moe is not None:
+            a2a = [r["moe_collectives"]["all_to_all"] for r in ranks]
+            want = 2 * cfg.n_layers if case.moe_sharding != "ffn" else 0
+            check(all(n == want for n in a2a), f"{label} {kind}: the MoE's all_to_all by rank "
+                  f"{a2a}, want {want} each")
+            res["pairs_routed_by_rank"] = [r["pairs_routed"] for r in ranks]
+            res["pairs_dropped_by_rank"] = [r["pairs_dropped"] for r in ranks]
+        if kind == "parity":
+            ref = refs[label]
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            res.update(max_abs_err_vs_one_process=err, largest_logit=scale)
+            check(err <= PREFILL_RTOL * scale, f"{label}: rank 0's logits are {err} from one "
+                  f"process's (largest logit {scale})")
+            if cfg.moe is not None:
+                check(sum(res["pairs_dropped_by_rank"]) == 0, f"{label}: drop-free run dropped")
+        out[f"{label} {kind}"] = res
+    return out, launches
+
+
 def phase_demos() -> tuple[dict, int]:
     """12: the paper's two repair demos through their ``main(argv)`` on the
     card: quickstart at its 64 KiB subblocks, and the layering walk-through
@@ -1583,6 +1715,14 @@ def main() -> int:
     phases["demos"] = {"host_s": time.perf_counter() - t}
     print(f"[12 demos] {json.dumps(demos)}")
 
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    sharded, sharded_launches = phase_sharded()
+    phases["sharded"] = {"host_s": time.perf_counter() - t}
+    for label, row in sharded.items():
+        print(f"[{label}] {smi}, 8 gloo ranks on one card, host-staged gloo times, not a "
+              f"network or NCCL figure: {json.dumps(row)}")
+
     head = k1["timings"][0]  # DRC(9,6,3) full-width parity encode
     kernels = {"kernels": [{
         "name": "gf_matmul",
@@ -1611,11 +1751,12 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28",
-        "launches": flash_launches + sum(family_launches.values()),
+        "launches": flash_launches + sum(family_launches.values()) + sharded_launches,
         "launches_by_phase": {"6b-6c": flash_launches, "9": train_flash_launches,
                               **{f"{label} {arch}": family_launches[label]
                                  for label, arch, _ in FAMILIES},
-                              "11": sum(family_train.values())},
+                              "11": sum(family_train.values()),
+                              "13 (8 ranks)": sharded_launches},
         "max_abs_err": fl["max_abs_err"],
         "rel_fro_err": fl["rel_fro_err"],
         "max_err_over_scale": fl["max_err_over_scale"],

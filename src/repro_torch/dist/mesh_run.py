@@ -1,8 +1,8 @@
 """Run the process-group repair executor in r*w local processes.
 
 One process per device of the ``(pod, node)`` mesh, all on this host, over a
-``gloo`` process group that meets through a file (no port is chosen, so
-concurrent runs do not collide).  Payloads live on ``device``, the card
+``gloo`` process group that meets through a file (``dist.spawn.spawn_ranks``:
+no port is chosen, so concurrent runs do not collide).  Payloads live on ``device``, the card
 unless the caller asks for the CPU: on a card, the executor stages them
 through the host around each ``gloo`` call.
 
@@ -37,8 +37,6 @@ With ``save=True`` the collector writes its output to ``workdir/case<i>.npy``.
 from __future__ import annotations
 
 import dataclasses
-import datetime
-import json
 import os
 import time
 from typing import Any
@@ -46,11 +44,11 @@ from typing import Any
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from repro_torch import obs
 from repro_torch.core.codes import make_code
 from repro_torch.dist.collectives import spmd_node_recovery, spmd_repair
+from repro_torch.dist.spawn import spawn_ranks
 from repro_torch.kernels.gf_matmul import gf_matmul_batched
 from repro_torch.launch.mesh import make_repair_mesh
 
@@ -122,10 +120,8 @@ def _run_case(case: Case, mesh: Any, rank: int, device: str, sent: dict) -> tupl
     return row, (outs[:, 0].cpu().numpy() if collector else None)
 
 
-def _worker(rank: int, world: int, init_file: str, cases: list[Case], device: str,
-            workdir: str, save: bool) -> None:
-    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
-                            world_size=world, timeout=datetime.timedelta(seconds=600))
+def _rank_rows(rank: int, world: int, device: str, workdir: str, cases: list[Case],
+               save: bool) -> list[dict]:
     sent = {"pod": 0, "w": 1}  # bytes sent to another pod; this mesh's w
     send = dist.send
 
@@ -136,9 +132,6 @@ def _worker(rank: int, world: int, init_file: str, cases: list[Case], device: st
 
     dist.send = counting_send
     try:
-        torch.set_num_threads(1)  # n processes share this host's cores
-        if device == "cuda":
-            torch.cuda.set_device(0)
         meshes: dict[tuple[int, int], Any] = {}
         rows = []
         for i, case in enumerate(cases):
@@ -154,12 +147,9 @@ def _worker(rank: int, world: int, init_file: str, cases: list[Case], device: st
             rows.append(row)
             if device == "cuda":
                 torch.cuda.empty_cache()
-        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
-            json.dump(rows, f)
-        dist.barrier()
+        return rows
     finally:
         dist.send = send
-        dist.destroy_process_group()
 
 
 def run(cases: list[Case], *, workdir: str, device: str = "cuda",
@@ -170,16 +160,8 @@ def run(cases: list[Case], *, workdir: str, device: str = "cuda",
     if len(worlds) != 1:
         raise ValueError(f"cases of one run need one world size, got {sorted(worlds)}")
     world = worlds.pop()
-    os.makedirs(workdir, exist_ok=True)
-    init_file = os.path.join(workdir, "pg_init")
-    if os.path.exists(init_file):
-        os.remove(init_file)
-    mp.start_processes(_worker, args=(world, init_file, list(cases), device, workdir, save),
-                       nprocs=world, join=True, start_method="spawn")
-    per_rank = []
-    for rank in range(world):
-        with open(os.path.join(workdir, f"rank{rank}.json")) as f:
-            per_rank.append(json.load(f))
+    per_rank = spawn_ranks(_rank_rows, world, workdir, (list(cases), save), device=device,
+                           timeout_s=600)
     merged = []
     for i, case in enumerate(cases):
         rows = [per_rank[rank][i] for rank in range(world)]

@@ -20,16 +20,27 @@ The PyTorch counterpart of ``repro.models.attention``.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import math
 from dataclasses import dataclass
+from typing import Iterator
 
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import (
+    ambient_mesh,
+    is_dtensor,
+    mesh_sizes,
+    placements,
+    resolve_spec,
+)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import NEG_INF, streaming_attention
 
-from .common import Dense, apply_rope, constrain, rope_angles
+from .common import Dense, apply_rope, rope_angles, spec
 from .config import ArchConfig
 
 
@@ -65,10 +76,44 @@ class Attention(nn.Module):
         super().__init__()
         d, hd, bias = cfg.d_model, cfg.head_dim, cfg.qkv_bias
         kw = dict(bias=bias, dtype=dtype, device=device)
-        self.wq = Dense(d, cfg.n_heads * hd, **kw)
-        self.wk = Dense(d, cfg.n_kv_heads * hd, **kw)
-        self.wv = Dense(d, cfg.n_kv_heads * hd, **kw)
-        self.wo = Dense(cfg.n_heads * hd, d, **kw)
+        self.wq = Dense(d, cfg.n_heads * hd, axes=spec("embed", "heads"), **kw)
+        self.wk = Dense(d, cfg.n_kv_heads * hd, axes=spec("embed", "kv"), **kw)
+        self.wv = Dense(d, cfg.n_kv_heads * hd, axes=spec("embed", "kv"), **kw)
+        self.wo = Dense(cfg.n_heads * hd, d, axes=spec("heads", "embed"), **kw)
+
+
+_FLASH_INPUTS: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
+    "flash_inputs", default=None)
+
+
+@contextlib.contextmanager
+def record_flash_inputs() -> Iterator[dict]:
+    """Within the context, copies of the first flash call's q, k, v and its
+    ``causal`` go into the dict it yields: under a mesh, the local shards
+    the kernel was handed on this rank."""
+    rec: dict = {}
+    token = _FLASH_INPUTS.set(rec)
+    try:
+        yield rec
+    finally:
+        _FLASH_INPUTS.reset(token)
+
+
+def _attend(q, k, v, *, causal: bool, chunk: int, use_flash: bool | None) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, Sk, kvH, hd) after RoPE -> (B, Sq, H, hd):
+    the flash kernel (``use_flash=None``: where q lies on a CUDA device) or
+    the chunked plain path."""
+    b, s, h, hd = q.shape
+    if use_flash is None:
+        use_flash = q.device.type == "cuda"
+    if use_flash:
+        rec = _FLASH_INPUTS.get()
+        if rec is not None and not rec:
+            rec.update(q=q.clone(), k=k.clone(), v=v.clone(), causal=causal)
+        return flash_attention(q, k, v, causal=causal)
+    qg = q.reshape(b, s, k.shape[2], h // k.shape[2], hd)
+    out = _chunked_attention(qg, k, v, causal=causal, chunk=min(chunk, k.shape[1]))
+    return out.reshape(b, s, h, hd)
 
 
 def attention(
@@ -87,32 +132,80 @@ def attention(
 
     With ``cross_kv`` (k, v of ``cross_kv()``, (B, Sk, kvH, hd)) it is
     cross-attention: only q is projected from x, neither q nor k gets RoPE,
-    and the mask is bidirectional, as in the reference."""
+    and the mask is bidirectional, as in the reference.
+
+    A DTensor x under an ambient mesh takes ``_attention_sharded``."""
+    mesh = ambient_mesh()
+    if mesh is not None and is_dtensor(x):
+        if cross_kv is not None:
+            raise NotImplementedError("cross-attention over a mesh is not ported "
+                                      "(ROADMAP queue 1, item 8)")
+        return _attention_sharded(p, cfg, x, mesh, causal=causal, chunk=chunk,
+                                  use_flash=use_flash)
+    if cross_kv is None:
+        return p.wo(_local_attention(p.wq(x), p.wk(x), p.wv(x), cfg=cfg, h0=0, causal=causal,
+                                     chunk=chunk, use_flash=use_flash))
     b, s, _ = x.shape
     hd = cfg.head_dim
-    groups = cfg.n_heads // cfg.n_kv_heads
     q = _split_heads(p.wq(x), cfg.n_heads, hd)
-    if cross_kv is None:
-        k = _split_heads(p.wk(x), cfg.n_kv_heads, hd)
-        v = _split_heads(p.wv(x), cfg.n_kv_heads, hd)
-        positions = torch.arange(s, device=x.device)[None, :]
-        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    else:
-        k, v = cross_kv
-        causal = False
-    q = constrain(q, "batch", "seq", "heads", None)
-    if use_flash is None:
-        use_flash = q.device.type == "cuda"
-    if use_flash:
-        out = flash_attention(q, k, v, causal=causal)
-    else:
-        qg = q.reshape(b, s, cfg.n_kv_heads, groups, hd)
-        eff_chunk = min(chunk, k.shape[1])
-        out = _chunked_attention(qg, k, v, causal=causal, chunk=eff_chunk)
-    out = out.reshape(b, s, cfg.n_heads * hd)
-    return p.wo(out)
+    k, v = cross_kv
+    out = _attend(q, k, v, causal=False, chunk=chunk, use_flash=use_flash)
+    return p.wo(out.reshape(b, s, cfg.n_heads * hd))
+
+
+def _local_attention(q2, k2, v2, *, cfg: ArchConfig, h0: int, causal: bool, chunk: int,
+                     use_flash: bool | None) -> torch.Tensor:
+    """One rank's attention: q2 (B, S, Hl*hd) its query heads h0..h0+Hl,
+    k2/v2 (B, S, kvH*hd) every kv head, each over the whole sequence.
+
+    Query head h reads kv head ``h // (H // kvH)``: the rank keeps the kv
+    heads its query heads read, and where its heads do not split evenly over
+    them, one kv head per query head."""
+    b, s, _ = q2.shape
+    hd = cfg.head_dim
+    hl = q2.shape[-1] // hd
+    kv_of = torch.arange(h0, h0 + hl) // (cfg.n_heads // cfg.n_kv_heads)
+    lo, hi = int(kv_of[0]), int(kv_of[-1]) + 1
+    k = _split_heads(k2, cfg.n_kv_heads, hd)[:, :, lo:hi]
+    v = _split_heads(v2, cfg.n_kv_heads, hd)[:, :, lo:hi]
+    if hl % (hi - lo) or not torch.equal(kv_of - lo, torch.arange(hl) // (hl // (hi - lo))):
+        k, v = k[:, :, kv_of - lo], v[:, :, kv_of - lo]
+    q = _split_heads(q2, hl, hd)
+    positions = torch.arange(s, device=q2.device)[None, :]
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    out = _attend(q, k, v, causal=causal, chunk=chunk, use_flash=use_flash)
+    return out.reshape(b, s, hl * hd)
+
+
+def _attention_sharded(p: Attention, cfg: ArchConfig, x, mesh, *, causal: bool, chunk: int,
+                       use_flash: bool | None):
+    """Attention of a DTensor x over ``mesh``.
+
+    The projections are DTensor products of the sharded weights.  The
+    attention itself runs per rank inside ``local_map`` (the reference's
+    GSPMD partition of its chunked scan): q laid out as the reference's
+    constraint ``(batch, seq, heads, None)`` resolves on the head count, with
+    the sequence kept whole (the kernel and the chunked path take whole
+    sequences), k and v with every head on every rank.  So the flash kernel
+    runs on each rank's local heads, and its plain version on the same
+    shards."""
+    from torch.distributed.tensor.experimental import local_map
+
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    q_spec = resolve_spec(("batch", None, "heads", None), (b, s, cfg.n_heads, hd), mesh)
+    q_pl = placements(q_spec[:3], mesh)
+    kv_pl = placements((q_spec[0], None, None), mesh)
+    h0 = 0
+    if q_spec[2] is not None:
+        h0 = mesh.get_local_rank(q_spec[2]) * (cfg.n_heads // mesh_sizes(mesh)[q_spec[2]])
+    core = local_map(
+        functools.partial(_local_attention, cfg=cfg, h0=h0, causal=causal, chunk=chunk,
+                          use_flash=use_flash),
+        out_placements=list(q_pl), in_placements=(q_pl, kv_pl, kv_pl), device_mesh=mesh,
+        redistribute_inputs=True)
+    return p.wo(core(p.wq(x), p.wk(x), p.wv(x)))
 
 
 def cross_kv(p: Attention, cfg: ArchConfig, enc: torch.Tensor):

@@ -40,6 +40,14 @@ from torch.utils.checkpoint import (
 from . import attention as attn
 from . import mamba2 as m2
 from . import xlstm as xl
+from repro_torch.dist.sharding import (
+    ambient_mesh,
+    gather_inner,
+    is_dtensor,
+    mesh_sizes,
+    shard_tensor,
+)
+
 from .common import DTYPES, Embedding, Norm, constrain
 from .config import ArchConfig
 from .mlp import MLP, MoE, mlp, moe_layer_with_loss
@@ -216,17 +224,45 @@ def init_model(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") ->
 
 
 # ==================================================================== forward
+MESH_LATER = "is not ported yet (ROADMAP queue 1, item 8)"
+MESH_FAMILIES = ("dense", "moe")  # the families whose forward runs over a mesh
+
+
+def _mesh_of_many():
+    """The ambient mesh if one of its dimensions has more than one device."""
+    mesh = ambient_mesh()
+    return mesh if mesh is not None and any(n > 1 for n in mesh_sizes(mesh).values()) else None
+
+
+def _check_mesh(p: Backbone, cfg: ArchConfig) -> None:
+    """Under a mesh of more than one device, only a sharded model of a
+    family ported to the mesh runs: never a silently replicated one."""
+    if _mesh_of_many() is None:
+        return
+    if cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(f"the {cfg.family} family's forward over a mesh {MESH_LATER}")
+    if not is_dtensor(p.embed.w):
+        raise ValueError("the model is not laid out over the ambient mesh: "
+                         "call models.weights.shard_model(model, mesh) first")
+
+
 def lm_head_weight(p: Backbone, cfg: ArchConfig) -> torch.Tensor:
     return p.embed.w if cfg.tie_embeddings else p.lm_head.w
 
 
 def _logits(p: Backbone, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(x):
+        x = gather_inner(x)
     logits = torch.matmul(x, lm_head_weight(p, cfg).t()) * cfg.logit_scale
     return constrain(logits, "batch", "seq", "vocab")
 
 
 def _embed_inputs(p: Backbone, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    x = p.embed(batch["tokens"]) * cfg.embed_scale
+    tokens = batch["tokens"]
+    mesh = ambient_mesh()
+    if mesh is not None and not is_dtensor(tokens):  # every rank holds the whole batch
+        tokens = shard_tensor(tokens, mesh, (None,) * tokens.dim())
+    x = p.embed(tokens) * cfg.embed_scale
     if cfg.family == "vlm" and "vis_embeds" in batch:
         x = torch.cat([batch["vis_embeds"].to(x.dtype), x], dim=1)
     return constrain(x, "batch", "seq", "embed")
@@ -255,7 +291,15 @@ def forward_hidden(p: Backbone, cfg: ArchConfig, batch: dict, *, chunk: int = 51
     """Backbone forward up to the final norm (pre-logits).  Returns (x, aux).
 
     Under autograd each block runs under ``cfg.remat`` (``_remat``); with
-    grad off (serving) the blocks run as they are."""
+    grad off (serving) the blocks run as they are.
+
+    Under an ambient mesh (``dist.sharding.use_mesh``) the dense and moe
+    families run sharded: the model must have been laid out over it
+    (``weights.shard_model``); the tokens enter replicated, as the
+    reference's unsharded inputs, every activation is a DTensor laid out by
+    the ``constrain`` points and DTensor's propagation, and the returned x
+    is one."""
+    _check_mesh(p, cfg)
     x = _embed_inputs(p, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     fam = cfg.family
@@ -263,7 +307,7 @@ def forward_hidden(p: Backbone, cfg: ArchConfig, batch: dict, *, chunk: int = 51
         block = _remat(decoder_block, cfg)
         for bp in p.blocks:
             x, a = block(bp, cfg, x, chunk=chunk, use_flash=use_flash)
-            aux = aux + a
+            aux = aux + (a.to_local() if is_dtensor(a) else a)  # replicated on every rank
     elif fam == "ssm":
         layer = _remat(xlstm_layer, cfg)
         for i, bp in enumerate(p.blocks):
@@ -351,7 +395,10 @@ def decode_step(p: Backbone, cfg: ArchConfig, state: dict, tokens: torch.Tensor,
     """One-token decode.  tokens (B, 1); returns (logits (B, 1, V), state).
 
     The KV caches and Mamba2 states in ``state`` are written in place at
-    ``position``; the xLSTM states are replaced."""
+    ``position``; the xLSTM states are replaced.  Decode over a mesh is not
+    ported: under one it raises."""
+    if _mesh_of_many():
+        raise NotImplementedError(f"decode over a mesh {MESH_LATER}")
     x = p.embed(tokens) * cfg.embed_scale
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):

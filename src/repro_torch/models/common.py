@@ -8,15 +8,33 @@ the same product and no transpose hides in the converter.
 
 Parameters are allocated uninitialised; ``reset_parameters(generator)``
 draws them from the reference's distributions (``common.py`` ``init_*``).
+Each module names the logical axes of its own parameters in ``axes``, the
+specs the reference's ``init_*`` return beside the arrays (see
+``weights.param_axes``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.sharding import gather_inner, is_dtensor, logical_constraint
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# ---------------------------------------------------------------- logical axes
+# batch/seq: activation dims; embed/ffn/heads/kv/vocab/expert: weight dims.
+LOGICAL = ("batch", "seq", "embed", "ffn", "heads", "kv", "vocab", "expert")
+
+
+class AxisSpec(tuple):
+    """Tuple of logical axis names (or None) for one array."""
+
+
+def spec(*names: str | None) -> AxisSpec:
+    return AxisSpec(names)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -26,10 +44,12 @@ def _param(shape, dtype, device) -> nn.Parameter:
 class Dense(nn.Module):
     """``y = x @ w (+ b)``, ``w`` of shape ``(d_in, d_out)``."""
 
-    def __init__(self, d_in: int, d_out: int, *, bias: bool = False, dtype, device) -> None:
+    def __init__(self, d_in: int, d_out: int, *, axes: AxisSpec, bias: bool = False, dtype,
+                 device) -> None:
         super().__init__()
         self.w = _param((d_in, d_out), dtype, device)
         self.b = _param((d_out,), dtype, device) if bias else None
+        self.axes = {"w": axes, "b": spec(axes[-1])}
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         scale = 1.0 / math.sqrt(self.w.shape[0])
@@ -38,6 +58,8 @@ class Dense(nn.Module):
             self.b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(x):
+            x = gather_inner(x)
         y = x @ self.w
         if self.b is not None:
             y = y + self.b
@@ -53,6 +75,7 @@ class Norm(nn.Module):
         self.eps = eps
         self.scale = _param((d,), torch.float32, device)
         self.bias = _param((d,), torch.float32, device) if kind == "layernorm" else None
+        self.axes = {"scale": spec("embed"), "bias": spec("embed")}
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         self.scale.fill_(1.0)
@@ -77,11 +100,22 @@ class Embedding(nn.Module):
     def __init__(self, vocab: int, d: int, *, dtype, device) -> None:
         super().__init__()
         self.w = _param((vocab, d), dtype, device)
+        self.axes = {"w": spec("vocab", "embed")}
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.w.normal_(0.0, 1.0, generator=generator).mul_(0.02)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if is_dtensor(self.w):
+            # a vocab-sharded table: DTensor's embedding rule gives partial
+            # sums masked by the ids' layout; they are reduced here, while
+            # the output still has it (torch 2.11 applies the mask to the
+            # re-cut tensor when a later redistribute also cuts the batch)
+            from torch.distributed.tensor import Replicate
+
+            out = F.embedding(ids, self.w)
+            return out.redistribute(out.device_mesh, [
+                Replicate() if p.is_partial() else p for p in out.placements])
         return self.w[ids.long()]
 
 
@@ -104,5 +138,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def constrain(x: torch.Tensor, *names: str | None) -> torch.Tensor:
-    """Logical sharding constraint: a no-op until sharding is ported."""
-    return x
+    """Logical sharding constraint on an activation.
+
+    Resolved through the ambient rules + mesh by
+    ``repro_torch.dist.sharding.logical_constraint``: a ``redistribute`` of a
+    DTensor under a mesh, a no-op without one (with a one-time warning if
+    rules were explicitly set)."""
+    return logical_constraint(x, names)

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Dense, _param, constrain
+from .common import Dense, _param, constrain, spec
 from .config import ArchConfig
 
 
@@ -30,13 +30,15 @@ class Mamba2(nn.Module):
         d, ssm = cfg.d_model, cfg.ssm
         d_in = d * ssm.expand
         n_heads = d_in // ssm.head_dim
-        self.in_xz = Dense(d, 2 * d_in, dtype=dtype, device=device)
-        self.in_bc = Dense(d, 2 * ssm.d_state, dtype=dtype, device=device)
-        self.in_dt = Dense(d, n_heads, dtype=dtype, device=device)
+        self.in_xz = Dense(d, 2 * d_in, axes=spec("embed", "ffn"), dtype=dtype, device=device)
+        self.in_bc = Dense(d, 2 * ssm.d_state, axes=spec("embed", None), dtype=dtype,
+                           device=device)
+        self.in_dt = Dense(d, n_heads, axes=spec("embed", "state"), dtype=dtype, device=device)
         self.conv = _param((ssm.d_conv, d_in), dtype, device)
         self.a_log = _param((n_heads,), torch.float32, device)
         self.d_skip = _param((n_heads,), torch.float32, device)
-        self.out = Dense(d_in, d, dtype=dtype, device=device)
+        self.out = Dense(d_in, d, axes=spec("ffn", "embed"), dtype=dtype, device=device)
+        self.axes = {"conv": spec(None, "ffn"), "a_log": spec("state"), "d_skip": spec("state")}
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """``conv`` N(0, 0.02^2) drawn in its dtype, ``a_log`` 0, ``d_skip``

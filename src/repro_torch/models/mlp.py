@@ -1,11 +1,10 @@
 """Feed-forward blocks: SwiGLU / GeLU and the token-choice MoE layer.
 
-The PyTorch counterpart of ``repro.models.mlp``.  The MoE layer runs on one
-device: sort-based top-k dispatch into (experts, capacity) slots, the
-experts' FFN as batched products, and a scatter-add combine.  The
-reference's ``_moe_spmd`` (``shard_map`` with ``all_to_all``) waits for the
-sharding rules (ROADMAP queue 1, item 8); given a mesh with a ``model``
-dimension, ``moe_layer_with_loss`` raises rather than run the local path.
+The PyTorch counterpart of ``repro.models.mlp``.  The MoE layer:
+sort-based top-k dispatch into (experts, capacity) slots, the experts' FFN
+as batched products, and a scatter-add combine; over a mesh, the reference's
+``_moe_spmd`` in ``local_map`` with ``all_to_all`` (expert parallel) or summed
+FFN shards (tensor parallel).
 """
 from __future__ import annotations
 
@@ -16,12 +15,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import obs
+from repro_torch.dist import mesh_collectives as mc
+from repro_torch.dist.sharding import (
+    ambient_mesh,
+    current_rules,
+    is_dtensor,
+    mesh_sizes,
+    placements,
+    resolve_spec,
+)
 
-from .common import Dense, _param, constrain
+from .common import Dense, _param, constrain, spec
 from .config import ArchConfig, MoEConfig
-
-MOE_MESH_UNSUPPORTED = ("the MoE layer over a mesh (the reference's _moe_spmd) waits for "
-                       "the sharding rules (ROADMAP queue 1, item 8)")
 
 
 class MLP(nn.Module):
@@ -29,9 +34,10 @@ class MLP(nn.Module):
 
     def __init__(self, d: int, d_ff: int, act: str, *, dtype, device) -> None:
         super().__init__()
-        self.up = Dense(d, d_ff, dtype=dtype, device=device)
-        self.gate = Dense(d, d_ff, dtype=dtype, device=device) if act == "swiglu" else None
-        self.down = Dense(d_ff, d, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device)
+        self.up = Dense(d, d_ff, axes=spec("embed", "ffn"), **kw)
+        self.gate = Dense(d, d_ff, axes=spec("embed", "ffn"), **kw) if act == "swiglu" else None
+        self.down = Dense(d_ff, d, axes=spec("ffn", "embed"), **kw)
 
 
 def _act(h: torch.Tensor, gate: torch.Tensor | None) -> torch.Tensor:
@@ -57,10 +63,12 @@ class MoE(nn.Module):
     def __init__(self, d: int, moe: MoEConfig, *, dtype, device) -> None:
         super().__init__()
         e, f = moe.num_experts, moe.d_ff_expert
-        self.router = Dense(d, e, dtype=torch.float32, device=device)
+        self.router = Dense(d, e, axes=spec("embed", None), dtype=torch.float32, device=device)
         self.up = _param((e, d, f), dtype, device)
         self.gate = _param((e, d, f), dtype, device)
         self.down = _param((e, f, d), dtype, device)
+        self.axes = {"up": spec("expert", "embed", "ffn"), "gate": spec("expert", "embed", "ffn"),
+                     "down": spec("expert", "ffn", "embed")}
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Expert weights ``U(-1/sqrt(d), 1/sqrt(d))``, ``down`` included
@@ -185,27 +193,114 @@ def _expert_ffn(xs, up, gate, down, act: str) -> torch.Tensor:
 
 
 def moe_layer_with_loss(p: MoE, cfg: ArchConfig, x: torch.Tensor, *, mesh=None):
-    """Token-choice top-k MoE on one device: returns (out (B, S, D), aux).
+    """Token-choice top-k MoE: returns (out (B, S, D), aux).
 
-    ``mesh`` (a ``DeviceMesh``) with a ``model`` dimension of more than one
-    device raises: the expert-parallel path is not ported.  Under
+    Without a mesh (``mesh``, or else the ambient one), or on a mesh of one
+    device or without a ``model`` dimension: the local sort-based dispatch.
+    On a mesh: ``_moe_spmd``, each rank routing its own tokens.  Under
     ``obs.tracing`` it counts the (token, choice) pairs routed and those
-    dropped over capacity (``moe.pairs.{routed,dropped}``); reading the count
-    waits for the device, so it is read only when tracing."""
-    # the reference's test for its SPMD path: more than one device, a model axis
-    if mesh is not None and mesh.size() > 1 and "model" in (mesh.mesh_dim_names or ()):
-        raise NotImplementedError(MOE_MESH_UNSUPPORTED)
-    moe = cfg.moe
-    b, s, d = x.shape
-    tokens = x.reshape(b * s, d)
-    xs, info = _dispatch_local(tokens, p.router.w, moe, moe.top_k)
+    dropped over capacity (``moe.pairs.{routed,dropped}``, per rank on a
+    mesh); reading the count waits for the device, so it is read only when
+    tracing."""
+    mesh = ambient_mesh() if mesh is None else mesh
+    if mesh is None or mesh.size() == 1 or "model" not in (mesh.mesh_dim_names or ()):
+        return _moe_single(p, cfg, x)
+    return _moe_spmd(p, cfg, x, mesh)
+
+
+def _count_pairs(info) -> None:
     if obs.enabled():
         keep = info[3]
         obs.counter_add("moe.pairs.routed", keep.numel())
         obs.counter_add("moe.pairs.dropped", int(keep.numel() - keep.sum()))
+
+
+def _moe_single(p: MoE, cfg: ArchConfig, x: torch.Tensor):
+    moe = cfg.moe
+    b, s, d = x.shape
+    tokens = x.reshape(b * s, d)
+    xs, info = _dispatch_local(tokens, p.router.w, moe, moe.top_k)
+    _count_pairs(info)
     ys = _expert_ffn(xs, p.up, p.gate, p.down, cfg.mlp_act)
     out = _combine_local(ys, info, tokens.shape[0])
     return out.reshape(b, s, d), info[-1]
+
+
+def _moe_spmd(p: MoE, cfg: ArchConfig, x, mesh):
+    """The reference's ``_moe_spmd``: the whole layer runs per rank in
+    ``local_map`` (its ``shard_map``); each rank routes and packs its own
+    tokens, then either
+
+    * EP (E % model == 0 and ``sharding == "expert"``, e.g. dbrx's 16
+      experts over 4): an ``all_to_all`` over ``model`` ships each expert's
+      slots to its owner, the local experts' FFN runs, and the reverse
+      ``all_to_all`` brings the outputs back;
+    * TP (otherwise, e.g. grok's ``sharding="ffn"``): every rank holds
+      every expert's ``ffn`` shard, and the partial outputs are summed.
+
+    The hidden dim may also shard over data (tp2d: ``extra_ffn``), whose
+    partial outputs are summed too.  Partial sums combine only for the same
+    tokens: over a partial axis that also shards the tokens (``tp_sp``), the
+    tokens are gathered first and the summed outputs reduce-scattered back.
+    With tokens replicated over ``model`` (EP), the outputs are averaged over
+    it, and ``aux`` is averaged over every axis.  Capacity counts each rank's
+    own tokens, so the drops differ from the single-device layer's."""
+    from torch.distributed.tensor.experimental import local_map
+
+    if not all(is_dtensor(t) for t in (x, p.router.w, p.up, p.gate, p.down)):
+        raise TypeError("the MoE over a mesh takes DTensors: shard the model over the mesh "
+                        "(models.weights.shard_model) and its input")
+    moe = cfg.moe
+    b, s, d = x.shape
+    sizes = mesh_sizes(mesh)
+    ep = moe.num_experts % sizes["model"] == 0 and moe.sharding == "expert"
+    rules = current_rules()
+    x_spec = resolve_spec(("batch", "seq", None), x.shape, mesh, rules)
+    f = moe.d_ff_expert
+    extra_ffn = tuple(a for a in rules.mesh_axes("ffn")
+                      if a != "model" and a in sizes and f % sizes[a] == 0)
+    ffn_entry = extra_ffn if ep else ("model",) + extra_ffn
+    ffn_entry = (ffn_entry[0] if len(ffn_entry) == 1 else ffn_entry) if ffn_entry else None
+    expert_entry = "model" if ep else None
+    w_up_spec = (expert_entry, None, ffn_entry)
+    w_down_spec = (expert_entry, ffn_entry, None)
+    token_axes = tuple(a for e in x_spec if e is not None
+                       for a in (e if isinstance(e, tuple) else (e,)))
+    partial_axes = extra_ffn if ep else ("model",) + extra_ffn
+    gather_axes = tuple(a for a in partial_axes if a in token_axes)
+    psum_axes = tuple(a for a in partial_axes if a not in token_axes)
+    all_axes = tuple(mesh.mesh_dim_names)
+
+    def local(xl, router, up, gate, down):
+        bl, sl, _ = xl.shape
+        tokens = xl.reshape(bl * sl, d)
+        for a in gather_axes:
+            tokens = mc.all_gather(tokens, mesh, a)
+        xs, info = _dispatch_local(tokens, router, moe, moe.top_k)
+        _count_pairs(info)
+        if ep:
+            xs = mc.all_to_all(xs, mesh, "model", split_dim=0, concat_dim=1)
+            ys = _expert_ffn(xs, up, gate, down, cfg.mlp_act)
+            ys = mc.all_to_all(ys, mesh, "model", split_dim=1, concat_dim=0)
+        else:
+            ys = _expert_ffn(xs, up, gate, down, cfg.mlp_act)
+        out = _combine_local(ys, info, tokens.shape[0])
+        if psum_axes:
+            out = mc.all_reduce(out, mesh, psum_axes)
+        for a in reversed(gather_axes):
+            out = mc.reduce_scatter(out, mesh, a)
+        if ep and "model" not in token_axes:
+            out = mc.mean(out, mesh, ("model",))
+        aux = mc.mean(info[-1], mesh, all_axes)
+        return out.reshape(bl, sl, d), aux
+
+    x_pl = placements(x_spec, mesh)
+    up_pl, down_pl = placements(w_up_spec, mesh), placements(w_down_spec, mesh)
+    replicated = placements((None,), mesh)
+    return local_map(
+        local, out_placements=(x_pl, replicated), device_mesh=mesh, redistribute_inputs=True,
+        in_placements=(x_pl, placements((None, None), mesh), up_pl, up_pl, down_pl),
+    )(x, p.router.w, p.up, p.gate if cfg.mlp_act == "swiglu" else p.up, p.down)
 
 
 def moe_layer(p: MoE, cfg: ArchConfig, x: torch.Tensor, *, mesh=None) -> torch.Tensor:

@@ -10,13 +10,21 @@ same values, for every family.  The reference stacks the layers of
 (``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses) is viewed as
 uint16 and reinterpreted as ``torch.bfloat16``: the bits are copied as they
 are, with no f32 round trip.  Only numpy is read here.
+
+``param_axes(model)`` gives each parameter's logical axes, the reference's
+``init_model`` axes tree under the same name map; ``shard_model(model,
+mesh)`` lays every parameter out over a ``DeviceMesh`` as those axes resolve
+under the ambient (or given) rules.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import Rules, resolve_spec, shard_tensor
+
 from .backbone import Backbone
+from .common import AxisSpec
 from .config import ArchConfig
 
 
@@ -59,8 +67,13 @@ def named_arrays(cfg: ArchConfig, np_tree: dict) -> dict:
 
 def params_from_jax(cfg: ArchConfig, np_tree: dict, *, device="cuda") -> Backbone:
     """A ``Backbone`` on ``device`` whose parameters equal ``np_tree``'s."""
+    return params_from_arrays(cfg, named_arrays(cfg, np_tree), device=device)
+
+
+def params_from_arrays(cfg: ArchConfig, arrays: dict, *, device="cuda") -> Backbone:
+    """A ``Backbone`` on ``device`` whose parameters equal ``arrays`` (numpy
+    arrays under the port's parameter names, as ``named_arrays`` gives)."""
     model = Backbone(cfg, device=device)
-    arrays = named_arrays(cfg, np_tree)
     params = dict(model.named_parameters())
     if arrays.keys() != params.keys():
         missing = sorted(params.keys() - arrays.keys())
@@ -88,3 +101,34 @@ def opt_state_from_jax(cfg: ArchConfig, np_opt_state: dict, *, device="cuda") ->
                     for name, leaf in named_arrays(cfg, np_opt_state[key]).items()}
     out["count"] = torch.from_numpy(np.array(np_opt_state["count"], dtype=np.int32)).to(device)
     return out
+
+
+def param_axes(model: torch.nn.Module) -> dict[str, AxisSpec]:
+    """Parameter name -> its logical axes, from each module's ``axes``: the
+    reference's ``init_model`` axes tree flattened through the name map of
+    ``named_arrays`` (a stacked layer loses its leading ``None``)."""
+    out = {}
+    for prefix, module in model.named_modules():
+        for pname, axes in getattr(module, "axes", {}).items():
+            if getattr(module, pname) is not None:
+                out[f"{prefix}.{pname}" if prefix else pname] = axes
+    names = {name for name, _ in model.named_parameters()}
+    if names != out.keys():
+        raise ValueError(f"parameters without axes: {sorted(names - out.keys())}")
+    return out
+
+
+def shard_model(model: torch.nn.Module, mesh, rules: Rules | None = None) -> torch.nn.Module:
+    """Replace every parameter of ``model`` (in place) by a DTensor over
+    ``mesh`` laid out as its logical axes resolve under ``rules`` (the
+    ambient ones by default).  Every rank must hold the same full model;
+    each keeps its own block of every parameter and nothing is
+    communicated."""
+    axes = param_axes(model)
+    for prefix, module in model.named_modules():
+        for pname, param in list(module.named_parameters(recurse=False)):
+            name = f"{prefix}.{pname}" if prefix else pname
+            spec = resolve_spec(axes[name], param.shape, mesh, rules)
+            sharded = shard_tensor(param.detach(), mesh, spec)
+            setattr(module, pname, torch.nn.Parameter(sharded, requires_grad=param.requires_grad))
+    return model

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Dense, constrain
+from .common import Dense, constrain, spec
 from .config import ArchConfig
 from .mamba2 import _chunks, _f32
 
@@ -28,12 +28,13 @@ class MLSTM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, dtype, device) -> None:
         super().__init__()
         d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
-        self.wq = Dense(d, h * hd, dtype=dtype, device=device)
-        self.wk = Dense(d, h * hd, dtype=dtype, device=device)
-        self.wv = Dense(d, h * hd, dtype=dtype, device=device)
-        self.wi = Dense(d, h, dtype=torch.float32, device=device)
-        self.wf = Dense(d, h, dtype=torch.float32, device=device)
-        self.wo = Dense(d, d, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device)
+        self.wq = Dense(d, h * hd, axes=spec("embed", "heads"), **kw)
+        self.wk = Dense(d, h * hd, axes=spec("embed", "heads"), **kw)
+        self.wv = Dense(d, h * hd, axes=spec("embed", "heads"), **kw)
+        self.wi = Dense(d, h, axes=spec("embed", "state"), dtype=torch.float32, device=device)
+        self.wf = Dense(d, h, axes=spec("embed", "state"), dtype=torch.float32, device=device)
+        self.wo = Dense(d, d, axes=spec("heads", "embed"), **kw)
 
 
 def _gate(p: Dense, x: torch.Tensor) -> torch.Tensor:
@@ -132,9 +133,10 @@ class SLSTM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, dtype, device) -> None:
         super().__init__()
         d = cfg.d_model
-        self.wx = Dense(d, 4 * d, dtype=dtype, device=device)
-        self.wh = Dense(d, 4 * d, dtype=dtype, device=device)
-        self.out = Dense(d, d, dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device)
+        self.wx = Dense(d, 4 * d, axes=spec("embed", "ffn"), **kw)
+        self.wh = Dense(d, 4 * d, axes=spec("embed", "ffn"), **kw)
+        self.out = Dense(d, d, axes=spec("embed", "embed"), **kw)
 
 
 def _slstm_step(p: SLSTM, carry, zx: torch.Tensor):

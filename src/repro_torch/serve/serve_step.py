@@ -11,10 +11,14 @@ under ``torch.no_grad``.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from repro_torch.dist.sharding import Rules, axis_rules, current_rules, is_dtensor, use_mesh
 from repro_torch.models import backbone
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.weights import shard_model
 
 
 def _on(model, device: torch.device) -> None:
@@ -24,18 +28,31 @@ def _on(model, device: torch.device) -> None:
 
 
 def make_prefill_step(cfg: ArchConfig, chunk: int = 512, *, device="cuda",
-                      use_flash: bool | None = None):
+                      use_flash: bool | None = None, mesh=None, rules: Rules | None = None):
     """``prefill_step(model, batch) -> logits (B, padded_vocab)`` at the last
     position.  ``batch`` holds ``tokens`` and, where the family takes them,
     ``vis_embeds`` (vlm) or ``frames`` (audio); each is moved to the step's
-    device.  ``use_flash=None`` takes the flash kernel on a CUDA device."""
+    device.  ``use_flash=None`` takes the flash kernel on a CUDA device.
+
+    With ``mesh`` (a ``DeviceMesh`` of the whole world, every rank calling
+    the step with the same batch) the model is laid out over it under
+    ``rules`` (the ambient ones by default) at its first step, and each step
+    runs under ``use_mesh(mesh)`` and ``axis_rules(rules)``: the logits are
+    a DTensor (``full_tensor()`` gathers them)."""
     device = torch.device(device)
+    rules = current_rules() if rules is None else rules
 
     @torch.no_grad()
     def prefill_step(model, batch):
         _on(model, device)
         batch = {key: torch.as_tensor(val, device=device) for key, val in batch.items()}
-        logits, _ = backbone.forward(model, cfg, batch, chunk=chunk, use_flash=use_flash)
+        with contextlib.ExitStack() as scope:
+            if mesh is not None:
+                scope.enter_context(use_mesh(mesh))
+                scope.enter_context(axis_rules(rules))
+                if not is_dtensor(model.embed.w):
+                    shard_model(model, mesh)
+            logits, _ = backbone.forward(model, cfg, batch, chunk=chunk, use_flash=use_flash)
         return logits[:, -1, :]
 
     return prefill_step

@@ -209,21 +209,6 @@ def test_moe_capacity_matches_reference(n, k, e, cf):
     assert tmlp.capacity(moe_t, n, k) == info[4]
 
 
-def test_moe_layer_refuses_a_mesh_with_a_model_axis():
-    class Mesh:
-        mesh_dim_names = ("data", "model")
-
-        def size(self):
-            return 4
-
-    _, cfg_t, _, model = _pair("dbrx_132b")
-    x = torch.zeros((1, 4, cfg_t.d_model))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmlp.moe_layer_with_loss(model.blocks[0].moe, cfg_t, x, mesh=Mesh())
-    out, aux = tmlp.moe_layer_with_loss(model.blocks[0].moe, cfg_t, x)
-    assert out.shape == x.shape
-
-
 @pytest.mark.parametrize("act", ["swiglu", "gelu"])
 def test_moe_layer_matches_reference(act):
     arch = "dbrx_132b" if act == "swiglu" else "grok_1_314b"
@@ -232,8 +217,19 @@ def test_moe_layer_matches_reference(act):
     want, aux_r = rmlp.moe_layer_with_loss(jax.tree.map(lambda a: a[0], params["blocks"])["moe"],
                                            cfg_r, jnp.asarray(x))
     got, aux_t = tmlp.moe_layer_with_loss(model.blocks[0].moe, cfg_t, torch.from_numpy(x))
+    assert got.shape == x.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(float(aux_t), float(aux_r), rtol=1e-6)
+
+    class DataOnlyMesh:  # no model axis: the local layer, as the reference's test for its SPMD path
+        mesh_dim_names = ("data",)
+
+        def size(self):
+            return 2
+
+    same, _ = tmlp.moe_layer_with_loss(model.blocks[0].moe, cfg_t, torch.from_numpy(x),
+                                       mesh=DataOnlyMesh())
+    assert torch.equal(same, got)
 
 
 @pytest.mark.parametrize("s,chunk", [(64, 16), (48, 16), (32, 64)])

@@ -19,7 +19,7 @@ from repro_torch import configs
 from repro_torch.core import gf, multi_failure
 from repro_torch.core.codes import make_code
 from repro_torch.core.gf_torch import gf_matmul_table
-from repro_torch.dist import collectives, mesh_run
+from repro_torch.dist import collectives, mesh_run, model_run
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
 from repro_torch.kernels.gf_matmul import gf_matmul_batched
@@ -221,6 +221,22 @@ def test_mesh_executor_on_card_over_gloo(dev, tmp_path):
         cross = sum(round(code.repair_plan(case.failed, rotation=s).traffic_blocks()[
             "cross_rack_blocks"] * code.alpha) * case.sub for s in range(max(1, case.stripes)))
         assert row["pod_sent_bytes"] == cross == row["counters"]["repair.bytes.cross_rack"]
+
+
+def test_sharded_prefill_on_card_over_gloo(dev, tmp_path):
+    """Two ranks on this card over ``gloo`` (a (data 1, model 2) mesh), the
+    dbrx smoke MoE expert-parallel in f32 at a drop-free capacity: rank 0's
+    logits equal one process's, the all-gather staged through the host."""
+    case = model_run.Case("dbrx-132b", mesh=(1, 2), batch=2, seq=64, smoke=True,
+                          param_dtype="float32", capacity_factor=8.0, use_flash=False)
+    (row,) = model_run.run([case], workdir=str(tmp_path), device="cuda")
+    model = model_run.seeded_model(case, "cuda")
+    want = make_prefill_step(model_run.case_config(case), device="cuda", use_flash=False)(
+        model, {"tokens": torch.from_numpy(model_run.case_tokens(case))})
+    np.testing.assert_allclose(row["logits"], want.cpu().numpy(), atol=1e-4, rtol=0)
+    for rank in row["ranks"]:
+        assert rank["moe_collectives"]["all_to_all"] == 2 * model_run.case_config(case).n_layers
+        assert rank["host_staged_bytes"] > 0 and rank["pairs_dropped"] == 0
 
 
 # tests/test_flash_attention.py SWEEP: b, sq, sk, h, kvh, d, causal; plus ragged

@@ -39,7 +39,9 @@ def test_port_modules_are_found():
                  "repro_torch.examples.train_e2e", "repro_torch.examples.elastic_recovery",
                  "repro_torch.models.mamba2", "repro_torch.models.xlstm",
                  "repro_torch.examples.serve_demo", "repro_torch.examples.quickstart",
-                 "repro_torch.examples.repair_layering"):
+                 "repro_torch.examples.repair_layering", "repro_torch.dist.sharding",
+                 "repro_torch.dist.mesh_collectives", "repro_torch.dist.model_run",
+                 "repro_torch.dist.spawn"):
         assert must in names
 
 
