@@ -126,7 +126,23 @@ drives the main path through the entry points a user calls, at the paper's
    flash call's local shards to the plain version, the MoE's ``all_to_all``
    to 2 a layer (13b) and none (13c); the pairs dropped, each rank's peak
    memory, collectives by kind and bytes staged through the host, and the
-   slowest rank's time (host-staged ``gloo``, not NCCL) are printed.
+   slowest rank's time (host-staged ``gloo``, not NCCL) are printed;
+14. training and decode over the same mesh, one run at a time:
+   ``make_train_step(cfg, tcfg, mesh=, rules=)`` and ``ServeEngine(...,
+   mesh=, rules=)`` through ``dist.model_run`` on the 8 ranks: 14a
+   StarCoder2-3B trained at full width and depth under ``fsdp`` (2 x 4096
+   tokens, a warm-up and a timed step), 14b dbrx-132b (1 of 40 layers)
+   under ``fsdp``, expert parallel, at a drop-free capacity on 2 x 512 and
+   at its config's on 2 x 1024; 14c StarCoder2-3B and 14d dbrx-132b (2 of
+   40 layers) decoded under ``tp`` (batch 8, 32 prompt and 16 greedy
+   tokens).  Each is held to one process's run on the same seeded weights:
+   rank 0's first loss within 1% and gradient norm within 5%, the dense
+   loss falling; the decode's logits within 5% of the largest (14d with
+   every token routed to every expert, then at its config's top 4), the
+   share of equal greedy tokens printed; the MoE's own ``all_to_all``
+   counted forward and backward.  Each rank's peak memory, the slowest
+   rank's time, collectives by kind forward and backward and bytes staged
+   through the host are printed (host-staged ``gloo``, not NCCL).
 
 The build prints ptxas's report of every kernel (registers, spills) and the
 bf16 flash kernel's geometry (tiles, stages, dynamic shared memory, the
@@ -134,8 +150,8 @@ registers ``setmaxnreg`` gives its producer and consumer warpgroups, and its
 TMA boxes), held equal to the wrapper's ``hopper_geometry``.  The
 GF kernel's launches are counted over phases 2-5 (``launches``, comparable
 with earlier runs) and per phase (``launches_by_phase``: 2-5, 7 summed over
-the ranks, 8, 9, 11g, 12), the flash kernel's over 6b-6c, 10a-e and 13
-(summed over the ranks; and over 9 and 11, where it must be 0).  Any
+the ranks, 8, 9, 11g, 12, 14), the flash kernel's over 6b-6c, 10a-e and 13
+(summed over the ranks; and over 9, 11 and 14, where it must be 0).  Any
 mismatch or exception exits non-zero.  The last three lines of standard
 output are the kernels JSON line, the card's name and power limit, and the
 result line.
@@ -189,6 +205,7 @@ from repro_torch.train import (  # noqa: E402
     ScheduleConfig,
     SyntheticStream,
     TrainConfig,
+    init_opt_state,
     init_train_state,
     learning_rate,
     make_train_step,
@@ -322,6 +339,40 @@ SHARDED_DENSE = (2, 4096)  # 13a's prefill: 2 x 4096 tokens (its window)
 # the pairs it drops and the time
 SHARDED_MOE_PARITY = (2, 1024)
 SHARDED_MOE = (2, 2048)
+# phase 14: training and decode over phase 13's mesh, one run at a time.
+# 14a StarCoder2-3B trained at full width and depth under ``fsdp``: 2 x 4096
+# tokens (one row a data half) in one microbatch, every block
+# rematerialised, KV chunks of 512, its config's f32 AdamW, WSD at peak 1e-4
+# entered past its warm-up (``model_run.train_config``, as 9a): a warm-up
+# step, then a timed one.  Reckoning: 3.18e9
+# parameters over 8 ranks, bf16 weights and gradients and f32 moments, 4.8
+# GB a rank and 38 GB in all, with 0.75 GB a rank of rematerialised inputs
+# and one layer's gathered weights on top.  14b dbrx-132b trained at 1 of 40
+# layers under ``fsdp`` (expert parallel; its config's bf16 AdamW state):
+# 4.49e9 parameters, 8 bytes each over 8 ranks, 4.5 GB a rank and 36 GB in
+# all, and each rank's 4 experts gathered over data (1.6 GB); at the
+# drop-free capacity on 2 x 512 tokens for parity, then at the config's on
+# 2 x 1024, a warm-up and a timed step.  Tokens cut from 2 x 2048: there
+# (and at the drop-free capacity on 2 x 1024) a rank's rematerialised
+# experts' f32 products, (4, 2560, 10752) and (4, 4096, 10752), ran the card
+# out of memory, 78.3 of 79.2 GB in use by 9 processes
+# 14c StarCoder2-3B (full) and 14d dbrx-132b (2 of 40 layers, 31 GB across
+# the ranks, as 13b) decoded under ``tp``: batch 8, 32-token prompts fed
+# through the decode step, then 16 greedy tokens, KV caches of 64.  14d's
+# parity run routes every token to all 16 experts: at the config's top 4 of
+# 16 random routers, bf16 differences of the mesh's partial sums flip a
+# near-tied 4th expert, and a row whose expert flipped departs (on the
+# H100 one of 8 rows by 13% of the largest logit, the other 7 within 1.4%);
+# the config's top 4 then runs for the time and the greedy tokens
+MESH_TRAIN = [("14a", "starcoder2-3b", None, (2, 4096)), ("14b", "dbrx-132b", 1, (2, 1024))]
+MESH_TRAIN_MOE_PARITY = (2, 512)
+MESH_TRAIN_STEPS = 2  # a warm-up step, then a timed one
+MESH_DECODE = [("14c", "starcoder2-3b", None), ("14d", "dbrx-132b", 2)]
+MESH_DECODE_BATCH, MESH_DECODE_PROMPT, MESH_DECODE_NEW, MESH_DECODE_KV = 8, 32, 16, 64
+# rank 0's first step against one process's on the same seeded weights and
+# batch: bf16 activations, other orders of sums (the mesh's partial sums and
+# reductions) and, for the MoE, the balance loss of each rank's own tokens
+MESH_LOSS_RTOL, MESH_NORM_RTOL = 0.01, 0.05
 
 
 def check(cond: bool, what: str) -> None:
@@ -1493,6 +1544,190 @@ def phase_sharded() -> tuple[dict, int]:
     return out, launches
 
 
+def mesh_cases() -> list[tuple[str, str, model_run.Case]]:
+    """14's runs: (label, ``parity`` or ``config``, case), in order."""
+    out = []
+    for label, arch, layers, (b, s) in MESH_TRAIN:
+        base = dict(arch=arch, kind="train", mode="fsdp", mesh=SHARDED_MESH, layers=layers,
+                    remat="full", seed=SEED)
+        moe = get_config(arch).moe
+        if moe is None:
+            out.append((label, "parity", model_run.Case(
+                **base, batch=b, seq=s, steps=MESH_TRAIN_STEPS)))
+            continue
+        pb, ps = MESH_TRAIN_MOE_PARITY
+        out.append((label, "parity", model_run.Case(
+            **base, batch=pb, seq=ps, steps=1, capacity_factor=moe.num_experts / moe.top_k)))
+        out.append((label, "config", model_run.Case(**base, batch=b, seq=s,
+                                                    steps=MESH_TRAIN_STEPS)))
+    for label, arch, layers in MESH_DECODE:
+        base = dict(arch=arch, kind="decode", mode="tp", mesh=SHARDED_MESH, layers=layers,
+                    seed=SEED, batch=MESH_DECODE_BATCH, seq=MESH_DECODE_PROMPT,
+                    new=MESH_DECODE_NEW, kv_len=MESH_DECODE_KV)
+        moe = get_config(arch).moe
+        if moe is None:
+            out.append((label, "parity", model_run.Case(**base)))
+            continue
+        out.append((label, "parity", model_run.Case(**base, top_k=moe.num_experts)))
+        out.append((label, "config", model_run.Case(**base)))
+    return out
+
+
+def mesh_reference(case: model_run.Case) -> dict:
+    """One process's run of a phase-14 case on the same seeded weights: a
+    train case's first step (its loss, norm and the pairs it dropped), or a
+    decode case's engine (the logits at the last prompt position and the
+    greedy tokens).  Everything it allocated is freed."""
+    cfg = model_run.case_config(case)
+    model = model_run.seeded_model(case, DEVICE)
+    with obs.tracing("14 reference") as tr:
+        if case.kind == "train":
+            tcfg = model_run.train_config(case)
+            model.requires_grad_(True)
+            opt = init_opt_state(model, tcfg.optimizer)
+            batch = {k: torch.from_numpy(v).to(DEVICE)
+                     for k, v in model_run.case_batch(case).items()}
+            _, _, metrics = make_train_step(cfg, tcfg)(model, opt, batch,
+                                                       model_run.TRAIN_WARMUP)
+            out = {key: float(metrics[key]) for key in ("loss", "grad_norm", "moe_aux")}
+            del opt, batch, metrics
+        else:
+            engine = ServeEngine(cfg, model, batch=case.batch, kv_len=case.kv_len, device=DEVICE)
+            logits = engine.prefill(torch.from_numpy(model_run.case_tokens(case)))
+            out = {"logits": logits.float().cpu(), "tokens": engine.generate(case.new).cpu()}
+            del engine, logits
+    out["pairs_dropped"] = int(tr.counter_value("moe.pairs.dropped"))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_row(ranks: list[dict]) -> dict:
+    """What 14 prints of one timed run on every rank."""
+    return {"gloo_host_staged_ms_slowest_rank": max(r["ms"] for r in ranks),
+            "ms_by_rank": [r["ms"] for r in ranks],
+            "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
+            "host_staged_bytes_by_rank": [r["host_staged_bytes"] for r in ranks],
+            "collectives_forward_rank0": ranks[0]["collectives"],
+            "collectives_backward_rank0": ranks[0]["backward_collectives"],
+            "mesh_collectives_by_phase_rank0": ranks[0]["moe_collectives_by_phase"],
+            "pairs_routed_by_rank": [r["pairs_routed"] for r in ranks],
+            "pairs_dropped_by_rank": [r["pairs_dropped"] for r in ranks]}
+
+
+def phase_mesh_train_decode(smi: str) -> tuple[dict, int]:
+    """14: ``make_train_step(cfg, tcfg, mesh=, rules=)`` and ``ServeEngine(...,
+    mesh=, rules=)`` through ``dist.model_run`` on 8 gloo ranks sharing this
+    card.  Each run's reference is one process's on the same seeded weights
+    and inputs, run here before the ranks start: rank 0's first train step's
+    loss within ``MESH_LOSS_RTOL`` and its gradient norm within
+    ``MESH_NORM_RTOL`` of one process's (the MoE at a drop-free capacity,
+    where neither drops a pair), the dense model's loss lower after its
+    first update; the decode's logits at the last prompt position within
+    ``PREFILL_RTOL`` of the largest (the MoE routing every token to every
+    expert), and the share of greedy tokens equal to one process's printed; the MoE's own ``all_to_all`` 2 a layer in each
+    forward, and in a train step's backward its reverse pair and the
+    rematerialised forward's.  Each run's line is printed before it is
+    checked.  Returns the results and the flash launches, summed over the
+    ranks (none: training takes the chunked attention, decode its cache
+    path)."""
+    cases = mesh_cases()
+    refs = {}
+    for label, role, case in cases:
+        if role == "parity" or case.kind == "decode":
+            t = time.perf_counter()
+            refs[f"{label} {role}"] = {**mesh_reference(case), "host_s": time.perf_counter() - t}
+    parent_bytes = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        rows = model_run.run([case for _, _, case in cases], workdir=d, device=DEVICE)
+    out = {"14 ranks": {"spawn_host_s": time.perf_counter() - t,
+                        "parent_allocated_bytes": parent_bytes}}
+    print(f"[14 ranks] {json.dumps(out['14 ranks'])}")
+    launches = 0
+    for (label, role, case), row in zip(cases, rows):
+        cfg = model_run.case_config(case)
+        ranks = row["ranks"]
+        launches += row["flash_launches"]
+        res = {"arch": case.arch, "kind": case.kind, "layers": cfg.n_layers,
+               "rules": case.mode, "mesh": list(case.mesh), "tokens": [case.batch, case.seq],
+               "capacity_factor": cfg.moe.capacity_factor if cfg.moe else None,
+               "top_k": cfg.moe.top_k if cfg.moe else None,
+               "build_s_by_rank": [r["build_s"] for r in ranks],
+               "flash_launches": row["flash_launches"]}
+        ref = refs.get(f"{label} {role}")
+        if ref is not None:
+            res["one_process_host_s"] = ref["host_s"]
+        if case.kind == "train":
+            res["steps"] = [{"step": at[0]["step"], "loss": at[0]["loss"],
+                             "grad_norm": at[0]["grad_norm"], "moe_aux": at[0]["moe_aux"],
+                             "loss_by_rank": [r["loss"] for r in at], **_mesh_row(at)}
+                            for at in ([r["steps"][n] for r in ranks] for n in range(case.steps))]
+            res["loss_change"] = res["steps"][-1]["loss"] - res["steps"][0]["loss"]
+            if ref is not None:
+                res.update(loss_one_process=ref["loss"], grad_norm_one_process=ref["grad_norm"],
+                           moe_aux_one_process=ref["moe_aux"],
+                           pairs_dropped_one_process=ref["pairs_dropped"])
+        else:
+            got = torch.from_numpy(row["logits"])
+            tokens = torch.from_numpy(row["tokens"])
+            shape_ok = tuple(got.shape) == tuple(ref["logits"].shape)
+            err_rows = (got - ref["logits"]).abs().amax(dim=-1) if shape_ok else None
+            res.update(max_abs_err_vs_one_process=float(err_rows.max()) if shape_ok else None,
+                       max_abs_err_by_row=err_rows.tolist() if shape_ok else None,
+                       largest_logit=float(ref["logits"].abs().max()),
+                       greedy_equal_share=float((tokens == ref["tokens"]).float().mean()),
+                       prefill=_mesh_row([r["prefill"] for r in ranks]),
+                       generate=_mesh_row(ranks),
+                       generate_ms_per_token_slowest_rank=row["ms"] / case.new)
+        print(f"[{label} {role}] {smi}, 8 gloo ranks on one card, host-staged gloo times, not "
+              f"a network or NCCL figure: {json.dumps(res)}")
+        out[f"{label} {role}"] = res
+        check(row["flash_launches"] == 0, f"{label} {role}: the flash kernel was launched")
+        if case.kind == "train":
+            check_mesh_train(label, role, cfg, res, ref)
+        else:
+            check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits")
+            check(tuple(got.shape) == (case.batch, cfg.padded_vocab),
+                  f"{label}: logits of shape {tuple(got.shape)}")
+            if role == "parity":
+                check(res["max_abs_err_vs_one_process"] <= PREFILL_RTOL * res["largest_logit"],
+                      f"{label}: rank 0's logits are {res['max_abs_err_vs_one_process']} from "
+                      f"one process's (largest logit {res['largest_logit']})")
+            if cfg.moe is not None:
+                a2a = [r["moe_collectives"]["all_to_all"] for r in ranks]
+                check(all(x == 2 * cfg.n_layers * case.new for x in a2a),
+                      f"{label}: the MoE's all_to_all by rank {a2a} over {case.new} steps")
+    return out, launches
+
+
+def check_mesh_train(label: str, role: str, cfg, res: dict, ref: dict | None) -> None:
+    """14a–b's checks of one run's printed result (see phase_mesh_train_decode)."""
+    for step in res["steps"]:
+        losses = step["loss_by_rank"]
+        check(all(math.isfinite(x) for x in losses), f"{label} {role}: losses {losses}")
+        check(max(losses) - min(losses) <= 1e-6 * abs(losses[0]),
+              f"{label} {role}: the ranks' losses differ: {losses}")
+        if cfg.moe is not None:
+            by_phase = step["mesh_collectives_by_phase_rank0"]
+            remat = 2 if cfg.remat != "none" else 1
+            check(by_phase["forward"]["all_to_all"] == 2 * cfg.n_layers and
+                  by_phase["backward"]["all_to_all"] == 2 * cfg.n_layers * remat,
+                  f"{label} {role}: the MoE's all_to_all by phase {by_phase}")
+    first = res["steps"][0]
+    if ref is not None:
+        check(abs(first["loss"] - ref["loss"]) <= MESH_LOSS_RTOL * abs(ref["loss"]),
+              f"{label}: rank 0's loss {first['loss']} against one process's {ref['loss']}")
+        check(abs(first["grad_norm"] - ref["grad_norm"]) <= MESH_NORM_RTOL * ref["grad_norm"],
+              f"{label}: rank 0's gradient norm {first['grad_norm']} against one process's "
+              f"{ref['grad_norm']}")
+        if cfg.moe is not None:
+            check(ref["pairs_dropped"] == 0 and sum(first["pairs_dropped_by_rank"]) == 0,
+                  f"{label}: a drop-free run dropped pairs")
+    if cfg.moe is None:
+        check(res["loss_change"] < 0, f"{label}: the loss did not fall: {res['steps']}")
+
+
 def phase_demos() -> tuple[dict, int]:
     """12: the paper's two repair demos through their ``main(argv)`` on the
     card: quickstart at its 64 KiB subblocks, and the layering walk-through
@@ -1723,6 +1958,13 @@ def main() -> int:
         print(f"[{label}] {smi}, 8 gloo ranks on one card, host-staged gloo times, not a "
               f"network or NCCL figure: {json.dumps(row)}")
 
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    gf_matmul_batched.launches = 0
+    _, mesh_launches_14 = phase_mesh_train_decode(smi)
+    gf_launches_14 = gf_matmul_batched.launches
+    phases["mesh train and decode"] = {"host_s": time.perf_counter() - t}
+
     head = k1["timings"][0]  # DRC(9,6,3) full-width parity encode
     kernels = {"kernels": [{
         "name": "gf_matmul",
@@ -1732,7 +1974,7 @@ def main() -> int:
         "launches": launches,
         "launches_by_phase": {"2-5": launches, "7": mesh_launches, "8": eval_launches,
                               "9": train_launches, "11g": ck11["gf_launches"],
-                              "12": demo_launches},
+                              "12": demo_launches, "14": gf_launches_14},
         "max_abs_err": kc.max_abs_err,
         "mismatched_bytes": kc.mismatched,
         "ms": head["ms"],
@@ -1751,12 +1993,14 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28",
-        "launches": flash_launches + sum(family_launches.values()) + sharded_launches,
+        "launches": (flash_launches + sum(family_launches.values()) + sharded_launches
+                     + mesh_launches_14),
         "launches_by_phase": {"6b-6c": flash_launches, "9": train_flash_launches,
                               **{f"{label} {arch}": family_launches[label]
                                  for label, arch, _ in FAMILIES},
                               "11": sum(family_train.values()),
-                              "13 (8 ranks)": sharded_launches},
+                              "13 (8 ranks)": sharded_launches,
+                              "14 (8 ranks)": mesh_launches_14},
         "max_abs_err": fl["max_abs_err"],
         "rel_fro_err": fl["rel_fro_err"],
         "max_err_over_scale": fl["max_err_over_scale"],

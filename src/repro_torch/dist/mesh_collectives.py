@@ -56,8 +56,15 @@ def host_staging() -> Iterator[None]:
 _C = torch.ops._c10d_functional
 
 
+def in_backward() -> bool:
+    """Whether the autograd engine is running a backward node here (a
+    rematerialised forward included)."""
+    return torch._C._current_autograd_node() is not None
+
+
 def _count(kind: str) -> None:
-    obs.counter_add("mesh.collectives", 1, kind=kind)
+    obs.counter_add("mesh.collectives", 1, kind=kind,
+                    phase="backward" if in_backward() else "forward")
 
 
 def axis_size(mesh: Any, axis: str) -> int:
@@ -68,19 +75,20 @@ def _name(mesh: Any, axis: str):
     return mesh.get_group(axis).group_name
 
 
-def all_gather(t: torch.Tensor, mesh: Any, axis: str) -> torch.Tensor:
-    """Every rank's ``t`` along ``axis``, concatenated along dim 0 in rank
-    order (``jax.lax.all_gather(..., axis=0, tiled=True)``)."""
+def _all_gather(t: torch.Tensor, mesh: Any, axis: str) -> torch.Tensor:
     _count("all_gather")
     return _C.wait_tensor(_C.all_gather_into_tensor(t.contiguous(), axis_size(mesh, axis),
                                                     _name(mesh, axis)))
 
 
-def all_to_all(t: torch.Tensor, mesh: Any, axis: str, split_dim: int,
-               concat_dim: int) -> torch.Tensor:
-    """``jax.lax.all_to_all(..., tiled=True)``: ``t`` cut into as many equal
-    blocks along ``split_dim`` as ``axis`` has ranks, block j sent to rank j,
-    the blocks received concatenated along ``concat_dim`` in rank order."""
+def _reduce_scatter(t: torch.Tensor, mesh: Any, axis: str) -> torch.Tensor:
+    _count("reduce_scatter")
+    return _C.wait_tensor(_C.reduce_scatter_tensor(t.contiguous(), "sum", axis_size(mesh, axis),
+                                                   _name(mesh, axis)))
+
+
+def _all_to_all(t: torch.Tensor, mesh: Any, axis: str, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
     _count("all_to_all")
     m = axis_size(mesh, axis)
     blocks = torch.stack(t.chunk(m, dim=split_dim))  # (m, ...): block j for rank j
@@ -88,25 +96,100 @@ def all_to_all(t: torch.Tensor, mesh: Any, axis: str, split_dim: int,
     return torch.cat(got.unbind(0), dim=concat_dim)
 
 
-def all_reduce(t: torch.Tensor, mesh: Any, axes: Sequence[str]) -> torch.Tensor:
-    """The sum of ``t`` over every rank of ``axes`` (``jax.lax.psum``)."""
+def _all_reduce(t: torch.Tensor, mesh: Any, axes: Sequence[str], op: str) -> torch.Tensor:
     for axis in axes:
         _count("all_reduce")
-        t = _C.wait_tensor(_C.all_reduce(t.contiguous(), "sum", _name(mesh, axis)))
+        t = _C.wait_tensor(_C.all_reduce(t.contiguous(), op, _name(mesh, axis)))
     return t
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_gather(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _reduce_scatter(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh, ctx.axis), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, concat_dim, split_dim)  # the reverse exchange
+        return _all_to_all(t, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return _all_reduce(t, mesh, axes, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def all_gather(t: torch.Tensor, mesh: Any, axis: str) -> torch.Tensor:
+    """Every rank's ``t`` along ``axis``, concatenated along dim 0 in rank
+    order (``jax.lax.all_gather(..., axis=0, tiled=True)``).  Its gradient is
+    the cotangent reduce-scattered over ``axis``."""
+    return _AllGather.apply(t, mesh, axis)
+
+
+def all_to_all(t: torch.Tensor, mesh: Any, axis: str, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """``jax.lax.all_to_all(..., tiled=True)``: ``t`` cut into as many equal
+    blocks along ``split_dim`` as ``axis`` has ranks, block j sent to rank j,
+    the blocks received concatenated along ``concat_dim`` in rank order.  Its
+    gradient is the reverse exchange of the cotangent (``concat_dim`` and
+    ``split_dim`` swapped)."""
+    return _AllToAll.apply(t, mesh, axis, split_dim, concat_dim)
+
+
+def all_reduce(t: torch.Tensor, mesh: Any, axes: Sequence[str]) -> torch.Tensor:
+    """The sum of ``t`` over every rank of ``axes`` (``jax.lax.psum``).  The
+    sum is a value every rank then holds alike, so its gradient is each
+    rank's own cotangent, as the reference's transpose under ``shard_map``
+    takes it."""
+    return _AllReduce.apply(t, mesh, tuple(axes))
 
 
 def reduce_scatter(t: torch.Tensor, mesh: Any, axis: str) -> torch.Tensor:
     """The sum of ``t`` over ``axis``, rank j keeping block j along dim 0
-    (``jax.lax.psum_scatter(..., scatter_dimension=0, tiled=True)``)."""
-    _count("reduce_scatter")
-    return _C.wait_tensor(_C.reduce_scatter_tensor(t.contiguous(), "sum", axis_size(mesh, axis),
-                                                   _name(mesh, axis)))
+    (``jax.lax.psum_scatter(..., scatter_dimension=0, tiled=True)``).  Its
+    gradient is the cotangent all-gathered over ``axis``."""
+    return _ReduceScatter.apply(t, mesh, axis)
 
 
 def mean(t: torch.Tensor, mesh: Any, axes: Sequence[str]) -> torch.Tensor:
-    """The mean of ``t`` over every rank of ``axes`` (``jax.lax.pmean``)."""
+    """The mean of ``t`` over every rank of ``axes`` (``jax.lax.pmean``): its
+    gradient is each rank's cotangent divided by the number of ranks."""
     n = 1
     for axis in axes:
         n *= axis_size(mesh, axis)
     return all_reduce(t, mesh, axes) / n
+
+
+def max_const(t: torch.Tensor, mesh: Any, axis: str) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over ``axis`` (``jax.lax.pmax``), for
+    a log-sum-exp's stabiliser, whose total derivative is zero: it carries
+    no gradient (the reference's ``_pmax_const``)."""
+    with torch.no_grad():
+        return _all_reduce(t, mesh, (axis,), "max")

@@ -1,4 +1,5 @@
-"""Run the sharded prefill forward in one local process per mesh device.
+"""Run the sharded model, prefill, train or decode, in one local process per
+mesh device.
 
 One process per device of a ``(data, model)`` mesh, all on this host, over a
 ``gloo`` process group that meets through a file (``dist.spawn.spawn_ranks``:
@@ -19,25 +20,38 @@ Each rank, for each case in turn:
   port's parameter names).  On a card the ranks build it in rounds, as many
   whole models at once as half the card holds, each keeping only its own
   blocks (``weights.shard_model``) before the next round starts.
-  Consecutive cases with the same model reuse it;
-* runs ``make_prefill_step(cfg, mesh=, rules=make_rules(mode))`` on the
-  case's tokens (:func:`case_tokens`, the same on every rank), from a
-  barrier to its synchronised end, under ``obs.tracing`` and a
-  :class:`CollectiveCounter`;
-* with ``all_positions``, runs ``backbone.forward`` under the mesh once more
-  for every position's logits and the MoE's ``aux``.
+  Consecutive cases with the same model reuse it, unless a train case
+  updated it;
+* runs the case's kind from a barrier to its synchronised end, under
+  ``obs.tracing`` and a :class:`CollectiveCounter`:
+
+  - ``prefill``: ``make_prefill_step(cfg, mesh=, rules=make_rules(mode))``
+    on the case's tokens (:func:`case_tokens`, the same on every rank); with
+    ``all_positions``, ``backbone.forward`` under the mesh once more for
+    every position's logits and the MoE's ``aux``;
+  - ``train``: ``steps`` steps of ``make_train_step(cfg, train_config(case),
+    mesh=, rules=)`` on one batch (:func:`case_batch`), numbered from
+    ``TRAIN_WARMUP``, each timed on its own; with ``save_state`` the updated
+    parameters and moments, gathered;
+  - ``decode``: a ``ServeEngine`` over the mesh fed the case's ``seq``-token
+    prompts one step at a time, then ``new`` greedy tokens; with
+    ``all_positions``, every step's logits.
 
 Each rank writes ``workdir/rank<r>.json``; rank 0 also writes the gathered
-logits, ``case<i>.npy`` (B, padded_vocab) in f32 (and ``case<i>_all.npy``).
-:func:`run` returns per case the logits, ``aux``, and per rank: the
-collectives by kind (every redistribution included) and those the MoE
-layer runs itself (``moe_collectives``), the
+arrays: ``case<i>.npy`` (a prefill's logits (B, padded_vocab) in f32, a
+decode's at the last prompt position), ``case<i>_all.npy`` (every position's,
+or every decode step's) and ``case<i>_state.npz`` (a train case's
+``params.<name>``, ``m.<name>``, ``v.<name>``).  :func:`run` returns per
+case the arrays and per rank: the collectives by kind (every redistribution
+included; a train step's backward apart), those run through
+``mesh_collectives`` (``moe_collectives``: the MoE layer's own, and in
+training also the cross-entropy's and the global norm's, by phase), the
 (token, choice) pairs routed and dropped, the flash kernel's launches, the
-bytes staged through the host, peak memory, the time, and the time the
-rank spent building the model (``build_s``, 0 where it was reused).  The first flash
-call's local shards (``attention.record_flash_inputs``) are also run through
-the kernel and its plain version (``flash_max_abs_err``; these launches are
-not counted).
+bytes staged through the host, peak memory, the time, and the time the rank
+spent building the model (``build_s``, 0 where it was reused).  A prefill's
+first flash call's local shards (``attention.record_flash_inputs``) are also
+run through the kernel and its plain version (``flash_max_abs_err``; these
+launches are not counted).
 """
 from __future__ import annotations
 
@@ -45,6 +59,7 @@ import contextlib
 import dataclasses
 import os
 import time
+import warnings
 from typing import Any
 
 import numpy as np
@@ -54,7 +69,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import obs
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.dist.mesh_collectives import host_staging
+from repro_torch.dist.mesh_collectives import host_staging, in_backward
 from repro_torch.dist.sharding import axis_rules, make_rules, use_mesh
 from repro_torch.dist.spawn import spawn_ranks
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
@@ -62,27 +77,43 @@ from repro_torch.launch.mesh import make_model_mesh
 from repro_torch.models import attention, backbone
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.weights import params_from_arrays, shard_model
+from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.serve_step import make_prefill_step
+from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+from repro_torch.train.schedule import ScheduleConfig
+from repro_torch.train.train_step import TrainConfig, make_train_step
 
 KINDS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all")
+PHASES = ("forward", "backward")
 
 
 @dataclasses.dataclass(frozen=True)
 class Case:
     arch: str
+    kind: str = "prefill"  # "prefill", "train" or "decode"
     mode: str = "tp"  # the sharding rules (dist.sharding.MODES)
     mesh: tuple[int, int] = (2, 4)  # (data, model)
     batch: int = 2
-    seq: int = 4096
+    seq: int = 4096  # the positions of a row; decode: the prompt's
     layers: int | None = None  # depth cut; None: the config's own
     capacity_factor: float | None = None  # None: the config's own
+    top_k: int | None = None  # experts a token is routed to; None: the config's own
     moe_sharding: str | None = None  # None: the config's own
     smoke: bool = False
     param_dtype: str | None = None  # None: the config's own
     seed: int = 0
     params: str | None = None  # .npz by parameter name; None: seeded from ``seed``
-    all_positions: bool = False
+    all_positions: bool = False  # prefill: every position's logits; decode: every step's
     use_flash: bool | None = None  # None: the kernel on a card; True: its plain version on the CPU
+    # train
+    steps: int = 1
+    microbatches: int = 1
+    remat: str | None = None  # None: the config's own
+    xent_tile: int = 2048
+    save_state: bool = False
+    # decode
+    new: int = 4
+    kv_len: int = 64
 
 
 def case_config(case: Case) -> ArchConfig:
@@ -92,10 +123,14 @@ def case_config(case: Case) -> ArchConfig:
         cfg = dataclasses.replace(cfg, n_layers=case.layers)
     if case.param_dtype is not None:
         cfg = dataclasses.replace(cfg, param_dtype=case.param_dtype)
+    if case.remat is not None:
+        cfg = dataclasses.replace(cfg, remat=case.remat)
     if cfg.moe is not None:
         moe = cfg.moe
         if case.capacity_factor is not None:
             moe = dataclasses.replace(moe, capacity_factor=case.capacity_factor)
+        if case.top_k is not None:
+            moe = dataclasses.replace(moe, top_k=case.top_k)
         if case.moe_sharding is not None:
             moe = dataclasses.replace(moe, sharding=case.moe_sharding)
         cfg = dataclasses.replace(cfg, moe=moe)
@@ -108,6 +143,31 @@ def case_tokens(case: Case) -> np.ndarray:
     cfg = case_config(case)
     rng = np.random.default_rng(case.seed)
     return rng.integers(0, cfg.vocab, size=(case.batch, case.seq), dtype=np.int32)
+
+
+def case_batch(case: Case) -> dict[str, np.ndarray]:
+    """A train case's batch: ``tokens`` and the next tokens as ``labels``,
+    (batch, seq) int32 each, from (batch, seq + 1) tokens drawn by numpy's
+    generator seeded with ``seed``."""
+    cfg = case_config(case)
+    rng = np.random.default_rng(case.seed)
+    rows = rng.integers(0, cfg.vocab, size=(case.batch, case.seq + 1), dtype=np.int32)
+    return {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+
+
+# a train case's steps are numbered from the end of the WSD schedule's
+# warm-up, so that every step updates at the peak rate
+TRAIN_LR, TRAIN_WARMUP = 1e-4, 2
+
+
+def train_config(case: Case) -> TrainConfig:
+    """A train case's training: AdamW in the config's state dtype, WSD at
+    peak ``TRAIN_LR`` after ``TRAIN_WARMUP`` steps, ``microbatches``, KV
+    chunks of 512, lm-head tiles of ``xent_tile`` rows."""
+    return TrainConfig(
+        optimizer=AdamWConfig(state_dtype=case_config(case).opt_state_dtype),
+        schedule=ScheduleConfig(kind="wsd", peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP),
+        microbatches=case.microbatches, xent_tile=case.xent_tile)
 
 
 def seeded_model(case: Case, device: str):
@@ -169,7 +229,9 @@ class CollectiveCounter(TorchDispatchMode):
     """Counts the collectives that run under it, by kind: the functional
     collectives (``torch.ops._c10d_functional``, which DTensor's
     redistributions and ``mesh_collectives`` call), DTensor's
-    ``shard_dim_alltoall`` and the ``c10d`` ops.  ``CommDebugMode`` counts
+    ``shard_dim_alltoall`` and the ``c10d`` ops; those the autograd engine
+    runs (a backward, its rematerialised forward included) in
+    ``backward_counts``, the rest in ``counts``.  ``CommDebugMode`` counts
     the same ops, but its module tracker names a module only through its
     parent's forward call, which the port's functional forward never makes,
     and then fails."""
@@ -177,6 +239,7 @@ class CollectiveCounter(TorchDispatchMode):
     def __init__(self) -> None:
         super().__init__()
         self.counts: dict[str, int] = {}
+        self.backward_counts: dict[str, int] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -187,40 +250,61 @@ class CollectiveCounter(TorchDispatchMode):
         if getattr(func, "namespace", None) in ("_c10d_functional", "c10d", "_dtensor"):
             kind = _kind(func)
             if kind in KINDS:
-                self.counts[kind] = self.counts.get(kind, 0) + 1
+                counts = self.backward_counts if in_backward() else self.counts
+                counts[kind] = counts.get(kind, 0) + 1
         return out
 
 
-def _run_case(i: int, case: Case, model, mesh: Any, rank: int, device: str,
-              workdir: str) -> dict:
+def _measured(run_: dict, device: str) -> dict:
+    """What every kind of case reports of one :func:`_timed` run on one
+    rank."""
+    tr, comm = run_["tr"], run_["comm"]
+    return {
+        "ms": run_["ms"],
+        "peak_bytes": torch.cuda.max_memory_allocated() if device == "cuda" else None,
+        "host_staged_bytes": int(tr.counter_value("mesh.bytes.host_staged")),
+        "collectives": comm.counts, "backward_collectives": comm.backward_counts,
+        "moe_collectives": {kind: sum(int(tr.counter_value("mesh.collectives", kind=kind,
+                                                             phase=phase)) for phase in PHASES)
+                            for kind in KINDS},
+        "moe_collectives_by_phase": {
+            phase: {kind: int(tr.counter_value("mesh.collectives", kind=kind, phase=phase))
+                    for kind in KINDS} for phase in PHASES},
+        "pairs_routed": int(tr.counter_value("moe.pairs.routed")),
+        "pairs_dropped": int(tr.counter_value("moe.pairs.dropped")),
+    }
+
+
+@contextlib.contextmanager
+def _timed(device: str):
+    """From a barrier to a synchronised end, under ``obs.tracing`` and a
+    :class:`CollectiveCounter`: yields a dict that holds, after the block,
+    the tracer (``tr``), the counter (``comm``) and the time (``ms``)."""
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    got: dict = {}
+    dist.barrier()
+    t0 = time.perf_counter()
+    with obs.tracing("model_run") as tr, CollectiveCounter() as comm:
+        yield got
+        _sync(device)
+    got.update(tr=tr, comm=comm, ms=(time.perf_counter() - t0) * 1e3)
+
+
+def _run_prefill(i: int, case: Case, model, mesh: Any, rank: int, device: str,
+                 workdir: str) -> dict:
     cfg = case_config(case)
     rules = make_rules(case.mode)
     tokens = torch.from_numpy(case_tokens(case))
     step = make_prefill_step(cfg, device=device, mesh=mesh, rules=rules,
                              use_flash=case.use_flash)
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
     launches = flash_attention.launches
-    dist.barrier()
-    t0 = time.perf_counter()
-    with (obs.tracing("model_run") as tr, CollectiveCounter() as comm,
-          attention.record_flash_inputs() as captured):
+    with attention.record_flash_inputs() as captured, _timed(device) as run_:
         logits = step(model, {"tokens": tokens})
-        _sync(device)
-    ms = (time.perf_counter() - t0) * 1e3
     launches = flash_attention.launches - launches
-    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
     full = logits.full_tensor().float().cpu().numpy()
-    row = {
-        "rank": rank, "ms": ms, "peak_bytes": peak, "flash_launches": launches,
-        "host_staged_bytes": int(tr.counter_value("mesh.bytes.host_staged")),
-        "collectives": comm.counts,
-        "moe_collectives": {kind: int(tr.counter_value("mesh.collectives", kind=kind))
-                            for kind in KINDS},
-        "pairs_routed": int(tr.counter_value("moe.pairs.routed")),
-        "pairs_dropped": int(tr.counter_value("moe.pairs.dropped")),
-        "aux": None, "flash_max_abs_err": None,
-    }
+    row = {"rank": rank, **_measured(run_, device),
+           "flash_launches": launches, "aux": None, "flash_max_abs_err": None}
     if rank == 0:
         np.save(os.path.join(workdir, f"case{i}.npy"), full)
     if case.all_positions:
@@ -243,6 +327,81 @@ def _run_case(i: int, case: Case, model, mesh: Any, rank: int, device: str,
     return row
 
 
+def _gathered(t: torch.Tensor) -> np.ndarray:
+    """The whole tensor in f32 on the host (every rank must call it)."""
+    return t.detach().full_tensor().float().cpu().numpy()
+
+
+# what torch warns when a backward crosses an op with no autograd kernel (and
+# then goes on, with the gradient that op's fallback gives)
+AUTOGRAD_FALLBACK = ".*autograd kernel was not registered.*"
+
+
+@contextlib.contextmanager
+def autograd_fallback_is_an_error():
+    """Within the context, a backward through an op that has no autograd
+    kernel raises instead of warning."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=AUTOGRAD_FALLBACK)
+        yield
+
+
+def _run_train(i: int, case: Case, model, mesh: Any, rank: int, device: str,
+               workdir: str) -> dict:
+    cfg, tcfg = case_config(case), train_config(case)
+    model.requires_grad_(True)
+    opt = init_opt_state(model, tcfg.optimizer)
+    step_fn = make_train_step(cfg, tcfg, mesh=mesh, rules=make_rules(case.mode))
+    batch = {key: torch.from_numpy(val).to(device) for key, val in case_batch(case).items()}
+    launches = flash_attention.launches
+    steps = []
+    for n in range(case.steps):
+        with autograd_fallback_is_an_error(), _timed(device) as run_:
+            _, _, metrics = step_fn(model, opt, batch, TRAIN_WARMUP + n)
+        steps.append({"step": TRAIN_WARMUP + n,
+                      **{key: float(metrics[key])
+                         for key in ("loss", "grad_norm", "moe_aux", "xent", "lr")},
+                      **_measured(run_, device)})
+    if case.save_state:
+        state = {f"params.{name}": _gathered(p) for name, p in model.named_parameters()}
+        for key in ("m", "v"):
+            state.update({f"{key}.{name}": _gathered(t) for name, t in opt[key].items()})
+        if rank == 0:
+            np.savez(os.path.join(workdir, f"case{i}_state.npz"), **state)
+    return {"rank": rank, "steps": steps, **steps[-1],
+            "flash_launches": flash_attention.launches - launches}
+
+
+def _run_decode(i: int, case: Case, model, mesh: Any, rank: int, device: str,
+                workdir: str) -> dict:
+    cfg = case_config(case)
+    engine = ServeEngine(cfg, model, batch=case.batch, kv_len=case.kv_len, device=device,
+                         mesh=mesh, rules=make_rules(case.mode))
+    prompts = torch.from_numpy(case_tokens(case))
+    launches = flash_attention.launches
+    every = []
+    with _timed(device) as prefill:
+        for t in range(case.seq):  # one step at a time: every step's logits
+            every.append(engine.prefill(prompts[:, t:t + 1]))
+    with _timed(device) as generate:
+        tokens = []
+        for _ in range(case.new):
+            tokens.append(engine.generate(1))
+            every.append(engine.last_logits)
+    row = {"rank": rank, **_measured(generate, device), "prefill": _measured(prefill, device),
+           "tokens": torch.cat(tokens, dim=1).cpu().tolist(),
+           "flash_launches": flash_attention.launches - launches}
+    if rank == 0:
+        np.save(os.path.join(workdir, f"case{i}.npy"), every[case.seq - 1].float().cpu().numpy())
+        if case.all_positions:
+            np.save(os.path.join(workdir, f"case{i}_all.npy"),
+                    torch.stack(every).float().cpu().numpy())
+    return row
+
+
+_RUNNERS = {"prefill": _run_prefill, "train": _run_train, "decode": _run_decode}
+
+
 def _rank_rows(rank: int, world: int, device: str, workdir: str,
                cases: list[Case]) -> list[dict]:
     # gloo cannot all-gather card tensors: stage that one collective
@@ -261,8 +420,10 @@ def _rank_rows(rank: int, world: int, device: str, workdir: str,
                 t0 = time.perf_counter()
                 model, key = _build(case, mesh, rank, world, device), _model_key(case)
                 build_s = time.perf_counter() - t0
-            rows.append({**_run_case(i, case, model, mesh, rank, device, workdir),
+            rows.append({**_RUNNERS[case.kind](i, case, model, mesh, rank, device, workdir),
                          "build_s": build_s})
+            if case.kind == "train":  # the model was updated: the next case builds its own
+                model, key = None, None
     return rows
 
 
@@ -272,6 +433,9 @@ def run(cases: list[Case], *, workdir: str, device: str = "cuda") -> list[dict]:
     worlds = {case.mesh[0] * case.mesh[1] for case in cases}
     if len(worlds) != 1:
         raise ValueError(f"cases of one run need one world size, got {sorted(worlds)}")
+    unknown = [case.kind for case in cases if case.kind not in _RUNNERS]
+    if unknown:
+        raise ValueError(f"unknown case kinds {unknown}; available: {sorted(_RUNNERS)}")
     world = worlds.pop()
     per_rank = spawn_ranks(_rank_rows, world, workdir, (list(cases),), device=device)
     merged = []
@@ -279,13 +443,23 @@ def run(cases: list[Case], *, workdir: str, device: str = "cuda") -> list[dict]:
         rows = [per_rank[rank][i] for rank in range(world)]
         out = {
             "case": dataclasses.asdict(case), "world": world,
-            "logits": np.load(os.path.join(workdir, f"case{i}.npy")),
             "ranks": rows,
             "ms": max(row["ms"] for row in rows),
             "flash_launches": sum(row["flash_launches"] for row in rows),
-            "aux": rows[0]["aux"],
+            "aux": rows[0].get("aux"),
         }
-        if case.all_positions:
-            out["logits_all"] = np.load(os.path.join(workdir, f"case{i}_all.npy"))
+        path = os.path.join(workdir, f"case{i}")
+        if case.kind != "train":
+            out["logits"] = np.load(path + ".npy")
+        if case.all_positions and case.kind != "train":
+            out["logits_all"] = np.load(path + "_all.npy")
+        if case.kind == "train":
+            out["steps_ms"] = [max(row["steps"][n]["ms"] for row in rows)
+                               for n in range(case.steps)]
+            if case.save_state:
+                with np.load(path + "_state.npz") as f:
+                    out["state"] = dict(f)
+        if case.kind == "decode":
+            out["tokens"] = np.array(rows[0]["tokens"], dtype=np.int32)
         merged.append(out)
     return merged

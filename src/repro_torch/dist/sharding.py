@@ -168,7 +168,8 @@ def resolve_specs(spec_tree: Any, shape_tree: Any, mesh: Any,
     return resolve_spec(spec_tree, tuple(shape), mesh, rules)
 
 
-def _axes_of(entry: Entry) -> tuple[str, ...]:
+def axes_of(entry: Entry) -> tuple[str, ...]:
+    """The mesh axes one spec entry names, major first."""
     if entry is None:
         return ()
     return entry if isinstance(entry, tuple) else (entry,)
@@ -184,7 +185,7 @@ def local_slices(spec: Sequence[Entry], shape: Sequence[int], sizes: Mapping[str
     out = []
     for entry, dim in zip(spec, shape):
         parts, index = 1, 0
-        for axis in _axes_of(entry):
+        for axis in axes_of(entry):
             parts *= sizes[axis]
             index = index * sizes[axis] + coord[axis]
         if dim % parts:
@@ -210,7 +211,7 @@ def placements(spec: Sequence[Entry], mesh: Any) -> tuple:
     sizes = mesh_sizes(mesh)
     out: list[Any] = [Replicate()] * len(names)
     for dim, entry in enumerate(spec):
-        axes = _axes_of(entry)
+        axes = axes_of(entry)
         for axis in axes:
             out[names.index(axis)] = Shard(dim)
         order = sorted(axes, key=names.index)
@@ -220,6 +221,22 @@ def placements(spec: Sequence[Entry], mesh: Any) -> tuple:
             outer, inner = order
             out[names.index(outer)] = _StridedShard(dim, split_factor=sizes[inner])
     return tuple(out)
+
+
+def grad_placements(pl: Sequence[Any], mesh: Any, varying: Sequence[str]) -> tuple:
+    """The placements of the gradient of a ``local_map`` input laid out as
+    ``pl``: a mesh dimension that shards it keeps its shard, one that
+    replicates it holds partial sums (``Partial``) where the axis is in
+    ``varying`` (the ranks along it computed with different tokens or weight
+    shards, so their cotangents add up to the gradient), and stays replicated
+    elsewhere (every rank along it computed alike and holds the whole
+    gradient).  This is the sum over the axis that JAX's transpose of the
+    implicit ``pvary`` of a replicated ``shard_map`` input takes."""
+    from torch.distributed.tensor import Partial
+
+    names = tuple(mesh.mesh_dim_names)
+    return tuple(Partial() if p.is_replicate() and names[i] in varying else p
+                 for i, p in enumerate(pl))
 
 
 def shard_tensor(full: torch.Tensor, mesh: Any, spec: Sequence[Entry]):
@@ -289,6 +306,31 @@ def gather_inner(x):
     whole = [Replicate() if p.is_shard() and 0 < p.dim < x.dim() - 1 else p
              for p in x.placements]
     return x if whole == list(x.placements) else x.redistribute(x.device_mesh, whole)
+
+
+class _GradAsLaidOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+
+        ctx.mesh = x.device_mesh
+        ctx.placements = [Replicate() if p.is_partial() else p for p in x.placements]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def grad_as_laid_out(x):
+    """x itself, whose gradient is redistributed to x's own layout (whole
+    where x holds partial sums) before it flows back into the op that made
+    x.  DTensor hands an op's backward the gradient laid out as the later
+    ops left it; torch 2.11 cannot then flatten a (batch, seq, ...)
+    gradient whose seq is sharded (the backward of a product's reshape),
+    nor turn a partial gradient into a vocab-parallel lookup's masked
+    partial."""
+    return _GradAsLaidOut.apply(x)
 
 
 # ------------------------------------------------------------ constraints

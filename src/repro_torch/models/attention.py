@@ -16,7 +16,8 @@ The PyTorch counterpart of ``repro.models.attention``.
   its chunked path.
 * Decode consumes a KV cache laid out (batch, kv_len, kv_heads, head_dim).
   The cache is updated in place (slice assignment at ``position``), where
-  JAX builds a new one with ``dynamic_update_slice``.
+  JAX builds a new one with ``dynamic_update_slice``; over a mesh each rank
+  writes its own shard of it.
 """
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ from torch import nn
 
 from repro_torch.dist.sharding import (
     ambient_mesh,
+    axes_of,
+    grad_placements,
     is_dtensor,
     mesh_sizes,
     placements,
@@ -139,7 +142,7 @@ def attention(
     if mesh is not None and is_dtensor(x):
         if cross_kv is not None:
             raise NotImplementedError("cross-attention over a mesh is not ported "
-                                      "(ROADMAP queue 1, item 8)")
+                                      "(ROADMAP queue 1, item 8.4)")
         return _attention_sharded(p, cfg, x, mesh, causal=causal, chunk=chunk,
                                   use_flash=use_flash)
     if cross_kv is None:
@@ -153,6 +156,19 @@ def attention(
     return p.wo(out.reshape(b, s, cfg.n_heads * hd))
 
 
+def _kv_read(cfg: ArchConfig, h0: int, hl: int, kv0: int, k, v):
+    """The keys and values that query heads h0..h0+hl read, from k/v (B, L,
+    kv, hd) holding kv heads kv0 on: query head h reads kv head ``h // (H //
+    kvH)``.  The heads read, as a slice, where the query heads group evenly
+    over them; else one kv head per query head."""
+    kv_of = torch.arange(h0, h0 + hl) // (cfg.n_heads // cfg.n_kv_heads) - kv0
+    lo, hi = int(kv_of[0]), int(kv_of[-1]) + 1
+    k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+    if hl % (hi - lo) or not torch.equal(kv_of - lo, torch.arange(hl) // (hl // (hi - lo))):
+        k, v = k[:, :, kv_of - lo], v[:, :, kv_of - lo]
+    return k, v
+
+
 def _local_attention(q2, k2, v2, *, cfg: ArchConfig, h0: int, causal: bool, chunk: int,
                      use_flash: bool | None) -> torch.Tensor:
     """One rank's attention: q2 (B, S, Hl*hd) its query heads h0..h0+Hl,
@@ -164,12 +180,8 @@ def _local_attention(q2, k2, v2, *, cfg: ArchConfig, h0: int, causal: bool, chun
     b, s, _ = q2.shape
     hd = cfg.head_dim
     hl = q2.shape[-1] // hd
-    kv_of = torch.arange(h0, h0 + hl) // (cfg.n_heads // cfg.n_kv_heads)
-    lo, hi = int(kv_of[0]), int(kv_of[-1]) + 1
-    k = _split_heads(k2, cfg.n_kv_heads, hd)[:, :, lo:hi]
-    v = _split_heads(v2, cfg.n_kv_heads, hd)[:, :, lo:hi]
-    if hl % (hi - lo) or not torch.equal(kv_of - lo, torch.arange(hl) // (hl // (hi - lo))):
-        k, v = k[:, :, kv_of - lo], v[:, :, kv_of - lo]
+    k, v = _kv_read(cfg, h0, hl, 0, _split_heads(k2, cfg.n_kv_heads, hd),
+                    _split_heads(v2, cfg.n_kv_heads, hd))
     q = _split_heads(q2, hl, hd)
     positions = torch.arange(s, device=q2.device)[None, :]
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
@@ -200,10 +212,14 @@ def _attention_sharded(p: Attention, cfg: ArchConfig, x, mesh, *, causal: bool, 
     h0 = 0
     if q_spec[2] is not None:
         h0 = mesh.get_local_rank(q_spec[2]) * (cfg.n_heads // mesh_sizes(mesh)[q_spec[2]])
+    # k and v: each rank's query heads read only their own kv heads, so the
+    # gradient sums over the axis that splits the heads
+    kv_grad = grad_placements(kv_pl, mesh, axes_of(q_spec[2]))
     core = local_map(
         functools.partial(_local_attention, cfg=cfg, h0=h0, causal=causal, chunk=chunk,
                           use_flash=use_flash),
-        out_placements=list(q_pl), in_placements=(q_pl, kv_pl, kv_pl), device_mesh=mesh,
+        out_placements=list(q_pl), in_placements=(q_pl, kv_pl, kv_pl),
+        in_grad_placements=(q_pl, kv_grad, kv_grad), device_mesh=mesh,
         redistribute_inputs=True)
     return p.wo(core(p.wq(x), p.wk(x), p.wv(x)))
 
@@ -244,29 +260,73 @@ def decode_attention(
     """One-token decode: x (B, 1, D), cache k/v (B, L, kvH, hd).
 
     The new key and value are written into ``cache`` in place at
-    ``position``; the same dict is returned.
+    ``position``; the same dict is returned.  A DTensor x under an ambient
+    mesh takes ``_decode_attention_sharded``.
     """
-    b = x.shape[0]
+    mesh = ambient_mesh()
+    if mesh is not None and is_dtensor(x):
+        return _decode_attention_sharded(p, cfg, x, cache, position, mesh), cache
+    out = _local_decode(p.wq(x), p.wk(x), p.wv(x), cache["k"], cache["v"], cfg=cfg, h0=0, kv0=0,
+                        position=position)
+    return p.wo(out), cache
+
+
+def _local_decode(q2, k2, v2, ck, cv, *, cfg: ArchConfig, h0: int, kv0: int,
+                  position: int) -> torch.Tensor:
+    """One rank's decode attention: q2 (B, 1, Hl*hd) its query heads
+    h0..h0+Hl, k2/v2 (B, 1, kvl*hd) the new key and value of the kv heads its
+    cache ck/cv (B, L, kvl, hd) holds, kv0 on.  The new key and value are
+    written into the cache in place at ``position``."""
+    b = q2.shape[0]
     hd = cfg.head_dim
-    groups = cfg.n_heads // cfg.n_kv_heads
-    q = _split_heads(p.wq(x), cfg.n_heads, hd)  # (B,1,H,hd)
-    k_new = _split_heads(p.wk(x), cfg.n_kv_heads, hd)
-    v_new = _split_heads(p.wv(x), cfg.n_kv_heads, hd)
-    pos = torch.full((b, 1), position, dtype=torch.int32, device=x.device)
+    hl, kvl = q2.shape[-1] // hd, k2.shape[-1] // hd
+    pos = torch.full((b, 1), position, dtype=torch.int32, device=q2.device)
     cos, sin = rope_angles(pos, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k_new = apply_rope(k_new, cos, sin)
+    q = apply_rope(_split_heads(q2, hl, hd), cos, sin)  # (B,1,Hl,hd)
+    k_new = apply_rope(_split_heads(k2, kvl, hd), cos, sin)
     # past the end of the cache the write lands on its last slot, as the
     # reference's clamped ``dynamic_update_slice`` does
-    slot = min(position, cache["k"].shape[1] - 1)
-    cache["k"][:, slot:slot + 1] = k_new
-    cache["v"][:, slot:slot + 1] = v_new
-    k, v = cache["k"], cache["v"]
-    qg = q.reshape(b, 1, cfg.n_kv_heads, groups, hd) / math.sqrt(hd)
+    slot = min(position, ck.shape[1] - 1)
+    ck[:, slot:slot + 1] = k_new
+    cv[:, slot:slot + 1] = _split_heads(v2, kvl, hd)
+    k, v = _kv_read(cfg, h0, hl, kv0, ck, cv)
+    qg = q.reshape(b, 1, k.shape[2], hl // k.shape[2], hd) / math.sqrt(hd)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
-    mask = torch.arange(k.shape[1], device=x.device) <= position
+    mask = torch.arange(k.shape[1], device=q2.device) <= position
     logits = torch.where(mask, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
-    out = out.reshape(b, 1, cfg.n_heads * hd)
-    return p.wo(out), cache
+    return out.reshape(b, 1, hl * hd)
+
+
+def _decode_attention_sharded(p: Attention, cfg: ArchConfig, x, cache: dict, position: int,
+                              mesh):
+    """Decode attention of a DTensor x over ``mesh``, the cache laid out by
+    ``backbone.init_decode_state(..., mesh=)``.  The projections are DTensor
+    products; the rest runs per rank in ``local_map`` on its local query
+    heads and its local shard of the cache, into which the new key and value
+    are written in place (the inputs are handed over in the cache's own
+    placements, so nothing is copied)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    b = x.shape[0]
+    hd = cfg.head_dim
+    c_spec = resolve_spec(("batch", "kv_seq", "kv", None), tuple(cache["k"].shape), mesh)
+    c_pl = placements(c_spec, mesh)
+    if not all(is_dtensor(t) and t.placements == c_pl for t in cache.values()):
+        raise ValueError("the decode state is not laid out over the ambient mesh: make it "
+                         "with backbone.init_decode_state(..., mesh=)")
+    q_spec = resolve_spec(("batch", None, "heads", None), (b, 1, cfg.n_heads, hd), mesh)
+    q_pl = placements(q_spec[:3], mesh)
+    kv_pl = placements((c_spec[0], None, c_spec[2]), mesh)
+    sizes = mesh_sizes(mesh)
+    h0 = kv0 = 0
+    if q_spec[2] is not None:
+        h0 = mesh.get_local_rank(q_spec[2]) * (cfg.n_heads // sizes[q_spec[2]])
+    if c_spec[2] is not None:
+        kv0 = mesh.get_local_rank(c_spec[2]) * (cfg.n_kv_heads // sizes[c_spec[2]])
+    core = local_map(
+        functools.partial(_local_decode, cfg=cfg, h0=h0, kv0=kv0, position=position),
+        out_placements=list(q_pl), in_placements=(q_pl, kv_pl, kv_pl, c_pl, c_pl),
+        device_mesh=mesh, redistribute_inputs=True)
+    return p.wo(core(p.wq(x), p.wk(x), p.wv(x), cache["k"], cache["v"]))

@@ -45,10 +45,12 @@ from repro_torch.dist.sharding import (
     gather_inner,
     is_dtensor,
     mesh_sizes,
+    placements,
+    resolve_spec,
     shard_tensor,
 )
 
-from .common import DTYPES, Embedding, Norm, constrain
+from .common import DTYPES, Embedding, Norm, constrain, spec
 from .config import ArchConfig
 from .mlp import MLP, MoE, mlp, moe_layer_with_loss
 
@@ -224,8 +226,8 @@ def init_model(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") ->
 
 
 # ==================================================================== forward
-MESH_LATER = "is not ported yet (ROADMAP queue 1, item 8)"
-MESH_FAMILIES = ("dense", "moe")  # the families whose forward runs over a mesh
+MESH_LATER = "is not ported yet (ROADMAP queue 1, item 8.4)"
+MESH_FAMILIES = ("dense", "moe")  # the families that run over a mesh
 
 
 def _mesh_of_many():
@@ -234,13 +236,13 @@ def _mesh_of_many():
     return mesh if mesh is not None and any(n > 1 for n in mesh_sizes(mesh).values()) else None
 
 
-def _check_mesh(p: Backbone, cfg: ArchConfig) -> None:
+def _check_mesh(p: Backbone, cfg: ArchConfig, what: str = "forward") -> None:
     """Under a mesh of more than one device, only a sharded model of a
     family ported to the mesh runs: never a silently replicated one."""
     if _mesh_of_many() is None:
         return
     if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(f"the {cfg.family} family's forward over a mesh {MESH_LATER}")
+        raise NotImplementedError(f"the {cfg.family} family's {what} over a mesh {MESH_LATER}")
     if not is_dtensor(p.embed.w):
         raise ValueError("the model is not laid out over the ambient mesh: "
                          "call models.weights.shard_model(model, mesh) first")
@@ -260,8 +262,13 @@ def _logits(p: Backbone, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def _embed_inputs(p: Backbone, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     tokens = batch["tokens"]
     mesh = ambient_mesh()
-    if mesh is not None and not is_dtensor(tokens):  # every rank holds the whole batch
-        tokens = shard_tensor(tokens, mesh, (None,) * tokens.dim())
+    if mesh is not None:
+        # the lookup takes the ids whole on every rank: DTensor's masked
+        # vocab-parallel lookup of sharded ids reduces its partial sums with a
+        # mask cut for the ids' shard after it has gathered the output
+        whole = (None,) * tokens.dim()
+        tokens = (tokens.redistribute(mesh, placements(whole, mesh)) if is_dtensor(tokens)
+                  else shard_tensor(tokens, mesh, whole))  # every rank holds the whole batch
     x = p.embed(tokens) * cfg.embed_scale
     if cfg.family == "vlm" and "vis_embeds" in batch:
         x = torch.cat([batch["vis_embeds"].to(x.dtype), x], dim=1)
@@ -351,19 +358,56 @@ def forward(p: Backbone, cfg: ArchConfig, batch: dict, *, chunk: int = 512,
 
 
 # ===================================================================== decode
-def init_decode_state(cfg: ArchConfig, batch: int, kv_len: int, *, device="cuda") -> dict:
+def decode_state_axes(cfg: ArchConfig, batch: int, kv_len: int) -> dict:
+    """The logical axes of ``init_decode_state(cfg, batch, kv_len)``'s state,
+    leaf for leaf: the reference's ``init_decode_state`` axes, which do not
+    depend on the sizes.  KV caches ``(None, "batch", "kv_seq", "kv", None)``
+    (the leading layer or shared-block-call axis replicated), the audio
+    encoder's output ``("batch", None, "embed")``, the xLSTM states per
+    block and the Mamba2 states with their leading layer axis."""
+    kv = spec(None, "batch", "kv_seq", "kv", None)
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm", "audio"):
+        axes = {"kv": {"k": kv, "v": kv}}
+        if fam == "audio":
+            axes["enc"] = spec("batch", None, "embed")
+        return axes
+    if fam == "ssm":
+        slstm = {"h": spec("batch", "embed"), "c": spec("batch", "embed"),
+                 "n": spec("batch", "embed")}
+        return {"blocks": [dict(slstm) if _xlstm_is_slstm(cfg, i)
+                           else {"c": spec("batch", "heads", None, None)}
+                           for i in range(cfg.n_layers)]}
+    if fam == "hybrid":
+        return {"mamba": {"h": spec(None, "batch", "state", None, None),
+                          "conv": spec(None, "batch", None, "ffn")},
+                "shared_kv": {"k": kv, "v": kv}}
+    raise ValueError(fam)
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, kv_len: int, *, device="cuda",
+                      mesh=None) -> dict:
     """The family's zero decode state (see the module docstring): KV caches
     (L, B, kv_len, kvH, hd), the audio encoder's output ``enc`` (B,
     encoder_seq, d) for the caller to set, xLSTM states per block, Mamba2
-    states stacked over layers and the shared block's caches over its calls."""
+    states stacked over layers and the shared block's caches over its calls.
+
+    With ``mesh`` (dense and moe) each leaf is a DTensor over it, laid out as
+    ``decode_state_axes`` resolve under the ambient rules."""
     dtype = DTYPES[cfg.param_dtype]
     fam = cfg.family
-    spec = attn.KVCacheSpec(batch, kv_len, cfg.n_kv_heads, cfg.head_dim, dtype)
+    if mesh is not None and fam not in MESH_FAMILIES:
+        raise NotImplementedError(f"the {fam} family's decode over a mesh {MESH_LATER}")
+    caches = attn.KVCacheSpec(batch, kv_len, cfg.n_kv_heads, cfg.head_dim, dtype)
     if fam in ("dense", "moe", "vlm", "audio"):
-        state = {"kv": spec.zeros(cfg.n_layers, device)}
+        state = {"kv": caches.zeros(cfg.n_layers, device)}
         if fam == "audio":
             state["enc"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model), dtype=dtype,
                                        device=device)
+        if mesh is not None:
+            axes = decode_state_axes(cfg, batch, kv_len)["kv"]
+            state["kv"] = {key: shard_tensor(leaf, mesh, resolve_spec(axes[key], leaf.shape, mesh))
+                           for key, leaf in state["kv"].items()}
         return state
     if fam == "ssm":
         return {"blocks": [
@@ -373,7 +417,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, kv_len: int, *, device="cuda"
     if fam == "hybrid":
         _, segs, _ = _segments(cfg)
         return {"mamba": m2.mamba2_init_state(cfg, batch, layers=cfg.n_layers, device=device),
-                "shared_kv": spec.zeros(segs, device)}
+                "shared_kv": caches.zeros(segs, device)}
     raise ValueError(fam)
 
 
@@ -395,11 +439,14 @@ def decode_step(p: Backbone, cfg: ArchConfig, state: dict, tokens: torch.Tensor,
     """One-token decode.  tokens (B, 1); returns (logits (B, 1, V), state).
 
     The KV caches and Mamba2 states in ``state`` are written in place at
-    ``position``; the xLSTM states are replaced.  Decode over a mesh is not
-    ported: under one it raises."""
-    if _mesh_of_many():
-        raise NotImplementedError(f"decode over a mesh {MESH_LATER}")
-    x = p.embed(tokens) * cfg.embed_scale
+    ``position``; the xLSTM states are replaced.
+
+    Under an ambient mesh the dense and moe families run sharded, as the
+    forward does (the model laid out by ``weights.shard_model``, the state by
+    ``init_decode_state(..., mesh=)``): each rank writes its own shard of
+    the caches, and the logits are a DTensor."""
+    _check_mesh(p, cfg, "decode")
+    x = _embed_inputs(p, cfg, {"tokens": tokens})
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
         for i, bp in enumerate(p.blocks):

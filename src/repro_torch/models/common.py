@@ -20,7 +20,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.dist.sharding import gather_inner, is_dtensor, logical_constraint
+from repro_torch.dist.sharding import (
+    gather_inner,
+    grad_as_laid_out,
+    is_dtensor,
+    logical_constraint,
+)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -63,7 +68,7 @@ class Dense(nn.Module):
         y = x @ self.w
         if self.b is not None:
             y = y + self.b
-        return y
+        return grad_as_laid_out(y) if is_dtensor(y) else y
 
 
 class Norm(nn.Module):
@@ -114,8 +119,11 @@ class Embedding(nn.Module):
             from torch.distributed.tensor import Replicate
 
             out = F.embedding(ids, self.w)
-            return out.redistribute(out.device_mesh, [
+            out = out.redistribute(out.device_mesh, [
                 Replicate() if p.is_partial() else p for p in out.placements])
+            # a gradient arrives partial where no constraint redistributes it
+            # first (as on a mesh whose data axis is 1)
+            return grad_as_laid_out(out)
         return self.w[ids.long()]
 
 

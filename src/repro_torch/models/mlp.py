@@ -18,7 +18,9 @@ from repro_torch import obs
 from repro_torch.dist import mesh_collectives as mc
 from repro_torch.dist.sharding import (
     ambient_mesh,
+    axes_of,
     current_rules,
+    grad_placements,
     is_dtensor,
     mesh_sizes,
     placements,
@@ -243,8 +245,14 @@ def _moe_spmd(p: MoE, cfg: ArchConfig, x, mesh):
     tokens: over a partial axis that also shards the tokens (``tp_sp``), the
     tokens are gathered first and the summed outputs reduce-scattered back.
     With tokens replicated over ``model`` (EP), the outputs are averaged over
-    it, and ``aux`` is averaged over every axis.  Capacity counts each rank's
-    own tokens, so the drops differ from the single-device layer's."""
+    it, and ``aux`` is averaged over every axis along which it may differ.
+    Capacity counts each rank's own tokens, so the drops differ from the
+    single-device layer's.
+
+    Gradients flow through the collectives' transposes
+    (``dist.mesh_collectives``) and back out of ``local_map`` with the
+    placements of ``sharding.grad_placements``: a replicated input's
+    gradient is summed over the axes along which the ranks' work differs."""
     from torch.distributed.tensor.experimental import local_map
 
     if not all(is_dtensor(t) for t in (x, p.router.w, p.up, p.gate, p.down)):
@@ -264,12 +272,16 @@ def _moe_spmd(p: MoE, cfg: ArchConfig, x, mesh):
     expert_entry = "model" if ep else None
     w_up_spec = (expert_entry, None, ffn_entry)
     w_down_spec = (expert_entry, ffn_entry, None)
-    token_axes = tuple(a for e in x_spec if e is not None
-                       for a in (e if isinstance(e, tuple) else (e,)))
+    token_axes = tuple(a for e in x_spec for a in axes_of(e))
     partial_axes = extra_ffn if ep else ("model",) + extra_ffn
     gather_axes = tuple(a for a in partial_axes if a in token_axes)
     psum_axes = tuple(a for a in partial_axes if a not in token_axes)
-    all_axes = tuple(mesh.mesh_dim_names)
+    # the axes along which ranks compute with other tokens or weight shards:
+    # their cotangents of a replicated input add up to its gradient; along
+    # any other axis every rank computes alike (aux included, whose mean is
+    # then taken over these axes alone: the same value)
+    varying = tuple(a for a in mesh.mesh_dim_names
+                    if a in token_axes or a in partial_axes or (ep and a == "model"))
 
     def local(xl, router, up, gate, down):
         bl, sl, _ = xl.shape
@@ -291,15 +303,17 @@ def _moe_spmd(p: MoE, cfg: ArchConfig, x, mesh):
             out = mc.reduce_scatter(out, mesh, a)
         if ep and "model" not in token_axes:
             out = mc.mean(out, mesh, ("model",))
-        aux = mc.mean(info[-1], mesh, all_axes)
+        aux = mc.mean(info[-1], mesh, varying)
         return out.reshape(bl, sl, d), aux
 
     x_pl = placements(x_spec, mesh)
     up_pl, down_pl = placements(w_up_spec, mesh), placements(w_down_spec, mesh)
     replicated = placements((None,), mesh)
+    in_pl = (x_pl, placements((None, None), mesh), up_pl, up_pl, down_pl)
     return local_map(
         local, out_placements=(x_pl, replicated), device_mesh=mesh, redistribute_inputs=True,
-        in_placements=(x_pl, placements((None, None), mesh), up_pl, up_pl, down_pl),
+        in_placements=in_pl,
+        in_grad_placements=tuple(grad_placements(pl, mesh, varying) for pl in in_pl),
     )(x, p.router.w, p.up, p.gate if cfg.mlp_act == "swiglu" else p.up, p.down)
 
 

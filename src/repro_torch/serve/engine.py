@@ -11,28 +11,44 @@ It holds any family's decode state (``backbone.init_decode_state``).  For
 the audio family the caller sets ``engine.state["enc"]`` to the encoder's
 output (``backbone._run_encoder``) before the prefill, as with the
 reference's engine.
+
+With a ``mesh`` (dense and moe) the model and the state are laid out over it
+under ``rules`` and every step runs sharded (``make_decode_step(...,
+mesh=)``); the logits a step returns are gathered (``full_tensor()``), so
+sampling and the returned logits and tokens are plain tensors, the same on
+every rank.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import obs
+from repro_torch.dist.sharding import Rules, axis_rules, current_rules, is_dtensor
 from repro_torch.models import backbone
 from repro_torch.models.config import ArchConfig
 
 from .serve_step import make_decode_step, sample_token
 
 
+def _gathered(logits: torch.Tensor) -> torch.Tensor:
+    return logits.full_tensor() if is_dtensor(logits) else logits
+
+
 class ServeEngine:
-    def __init__(self, cfg: ArchConfig, model, *, batch: int, kv_len: int, device="cuda"):
+    def __init__(self, cfg: ArchConfig, model, *, batch: int, kv_len: int, device="cuda",
+                 mesh=None, rules: Rules | None = None):
         self.cfg = cfg
         self.model = model
         self.batch = batch
         self.kv_len = kv_len
         self.device = torch.device(device)
-        self.state = backbone.init_decode_state(cfg, batch, kv_len, device=self.device)
-        self._step = make_decode_step(cfg, device=self.device)
+        rules = current_rules() if rules is None else rules
+        with axis_rules(rules):
+            self.state = backbone.init_decode_state(cfg, batch, kv_len, device=self.device,
+                                                    mesh=mesh)
+        self._step = make_decode_step(cfg, device=self.device, mesh=mesh, rules=rules)
         self.position = 0
+        self.last_logits = None  # the last generate step's logits (B, padded_vocab)
 
     def prefill(self, prompts) -> torch.Tensor:
         """prompts (B, S) int; feeds them through decode steps.  Returns the
@@ -45,9 +61,9 @@ class ServeEngine:
             logits = torch.zeros((b, self.cfg.padded_vocab), dtype=torch.float32,
                                  device=self.device)
             for t in range(s):
-                step_logits, self.state = self._step(
+                logits, self.state = self._step(
                     self.model, self.state, prompts[:, t][:, None], t + self.position)
-                logits = step_logits.float()
+            logits = _gathered(logits).float()
             self.position += s
             obs.counter_add("serve.tokens.prefill", b * int(s))
         return logits
@@ -57,7 +73,7 @@ class ServeEngine:
         """``n_tokens`` decode steps; returns the sampled tokens (B, n) int32."""
         logits = torch.zeros((self.batch, self.cfg.padded_vocab), dtype=torch.float32,
                              device=self.device)
-        last = getattr(self, "_last_logits", None)
+        last = self.last_logits
         tok = (
             sample_token(generator, last, temperature)
             if last is not None
@@ -69,9 +85,10 @@ class ServeEngine:
             for _ in range(n_tokens):
                 logits, self.state = self._step(
                     self.model, self.state, tok[:, None], self.position)
+                logits = _gathered(logits)
                 tok = sample_token(generator, logits, temperature)
                 out.append(tok)
                 self.position += 1
             obs.counter_add("serve.tokens.decode", self.batch * n_tokens)
-        self._last_logits = logits
+        self.last_logits = logits
         return torch.stack(out, dim=1)

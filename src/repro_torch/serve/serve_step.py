@@ -58,16 +58,29 @@ def make_prefill_step(cfg: ArchConfig, chunk: int = 512, *, device="cuda",
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, *, device="cuda"):
+def make_decode_step(cfg: ArchConfig, *, device="cuda", mesh=None, rules: Rules | None = None):
     """``serve_step(model, state, tokens (B, 1), position) -> (logits (B, V),
-    state)``; the state's caches are written in place."""
+    state)``; the state's caches are written in place.
+
+    With ``mesh`` the model is laid out over it under ``rules`` (the ambient
+    ones by default) at its first step, and each step runs under
+    ``use_mesh(mesh)`` and ``axis_rules(rules)`` on a state laid out over it
+    (``backbone.init_decode_state(..., mesh=)``): the logits are a DTensor
+    (``full_tensor()`` gathers them)."""
     device = torch.device(device)
+    rules = current_rules() if rules is None else rules
 
     @torch.no_grad()
     def serve_step(model, state, tokens, position: int):
         _on(model, device)
         tokens = torch.as_tensor(tokens, device=device)
-        logits, state = backbone.decode_step(model, cfg, state, tokens, position)
+        with contextlib.ExitStack() as scope:
+            if mesh is not None:
+                scope.enter_context(use_mesh(mesh))
+                scope.enter_context(axis_rules(rules))
+                if not is_dtensor(model.embed.w):
+                    shard_model(model, mesh)
+            logits, state = backbone.decode_step(model, cfg, state, tokens, position)
         return logits[:, -1, :], state
 
     return serve_step

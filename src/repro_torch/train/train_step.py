@@ -9,18 +9,37 @@ microbatches, each microbatch's gradients are added into an accumulator in
 ``accum_dtype`` for bf16 parameters (f32 by default, in the parameter's dtype
 otherwise) and the sum is divided by the count, as the reference's scan
 does.  The forward takes the chunked attention (the flash kernel has no
-backward) under the config's ``remat`` policy.  ``shard_grads`` is a no-op
-until sharding is ported.
+backward) under the config's ``remat`` policy.
+
+With a ``mesh`` (a ``DeviceMesh`` of the whole world, every rank calling the
+step with the same batch) the step lays the model and its optimizer state out
+over it at its first call, shards each batch on its tokens and runs under
+``use_mesh`` and ``axis_rules``, as the reference's step jitted with its
+parameter and optimizer shardings: the loss is the vocab-parallel
+cross-entropy over the mesh, and the gradients are redistributed to their
+parameters' placements (``_pin_to_specs``).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch.dist.sharding import (
+    Rules,
+    ambient_mesh,
+    axis_rules,
+    current_rules,
+    is_dtensor,
+    resolve_spec,
+    shard_tensor,
+    use_mesh,
+)
 from repro_torch.models import backbone
 from repro_torch.models.config import ArchConfig
-from .optimizer import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.models.weights import param_axes, shard_model
+from .optimizer import AdamWConfig, adamw_update, init_opt_state, shard_opt_state
 from .schedule import ScheduleConfig, learning_rate
 from .xent import sharded_xent, vocab_parallel_xent
 
@@ -37,7 +56,10 @@ class TrainConfig:
     fused_xent: bool = True  # tile-fused lm-head + loss
     xent_tile: int = 2048
     accum_dtype: str = "float32"  # grad-accumulation buffer (bf16 for 100B+)
-    shard_grads: bool = True  # no-op until sharding is ported
+    # over a mesh, pin each microbatch's gradients to their parameters'
+    # placements before adding them up (a reduce-scatter each under fsdp);
+    # otherwise the sum is pinned once
+    shard_grads: bool = True
 
 
 def loss_fn(model: backbone.Backbone, cfg: ArchConfig, tcfg: TrainConfig, batch: dict):
@@ -50,6 +72,8 @@ def loss_fn(model: backbone.Backbone, cfg: ArchConfig, tcfg: TrainConfig, batch:
             backbone.lm_head_weight(model, cfg),
             batch["labels"],
             cfg.vocab,
+            mesh=ambient_mesh(),
+            token_axes=("pod", "data"),
             tile=tcfg.xent_tile,
             logit_scale=cfg.logit_scale,
         )
@@ -80,36 +104,76 @@ def _value_and_grad(model, params: list, cfg: ArchConfig, tcfg: TrainConfig, bat
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_train_step(cfg: ArchConfig, tcfg: TrainConfig):
+def _pin_to_specs(grads, params: list) -> list:
+    """Each gradient laid out as its parameter (the reference's
+    ``with_sharding_constraint`` to the parameter's spec): partial sums are
+    reduced, and where the parameter is sharded, reduce-scattered."""
+    return [g.redistribute(p.device_mesh, p.placements)
+            if is_dtensor(g) and g.placements != p.placements else g
+            for g, p in zip(grads, params)]
+
+
+def _shard_batch(batch: dict, mesh, rules: Rules) -> dict:
+    """Each (rows, positions) tensor of ``batch``, which every rank holds
+    whole, as a DTensor sharded on its tokens (``("batch", "seq")``)."""
+    return {key: shard_tensor(val, mesh, resolve_spec(("batch", "seq"), val.shape, mesh, rules))
+            if val.dim() == 2 else val for key, val in batch.items()}
+
+
+def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, *, mesh=None,
+                    rules: Rules | None = None):
+    """``train_step(model, opt_state, batch, step) -> (model, opt_state,
+    metrics)``.  With ``mesh`` the model and ``opt_state`` are laid out over
+    it under ``rules`` (the ambient ones by default) at the first step
+    (``weights.shard_model``, ``optimizer.shard_opt_state``), each
+    microbatch is sharded on its tokens, and the step runs under
+    ``use_mesh(mesh)`` and ``axis_rules(rules)``; the metrics are plain
+    tensors, the same on every rank."""
+    rules = current_rules() if rules is None else rules
+
+    def grads_of(model, names: list, params: list, batch: dict):
+        micro = _split_micro(batch, tcfg.microbatches)
+        if mesh is not None:
+            micro = [_shard_batch(mb, mesh, rules) for mb in micro]
+        adt = _ACCUM_DTYPES[tcfg.accum_dtype]
+        acc, losses, per_mb = None, [], []
+        for mb in micro:
+            loss_mb, metrics_mb, g = _value_and_grad(model, params, cfg, tcfg, mb)
+            if len(micro) == 1:
+                return loss_mb, metrics_mb, dict(zip(names, _pin_to_specs(g, params)))
+            if tcfg.shard_grads:
+                g = _pin_to_specs(g, params)
+            if acc is None:
+                acc = [torch.zeros_like(gi, dtype=adt if gi.dtype == torch.bfloat16 else gi.dtype)
+                       for gi in g]
+            for a, gi in zip(acc, g):
+                a.add_(gi)
+            del g
+            losses.append(loss_mb)
+            per_mb.append(metrics_mb)
+        for a in acc:
+            a.div_(tcfg.microbatches)
+        loss = torch.stack(losses).sum() / tcfg.microbatches
+        metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
+        return loss, metrics, dict(zip(names, _pin_to_specs(acc, params)))
+
     def train_step(model: backbone.Backbone, opt_state: dict, batch: dict, step):
-        named = dict(model.named_parameters())
-        frozen = [name for name, p in named.items() if not p.requires_grad]
-        if frozen:
-            raise ValueError(f"parameters {frozen[:3]}... do not require grad: build the "
-                             "model with init_train_state or call model.requires_grad_(True)")
-        names, params = list(named), list(named.values())
-        if tcfg.microbatches > 1:
-            adt = _ACCUM_DTYPES[tcfg.accum_dtype]
-            grads = {name: torch.zeros(p.shape, device=p.device,
-                                       dtype=adt if p.dtype == torch.bfloat16 else p.dtype)
-                     for name, p in named.items()}
-            losses, per_mb = [], []
-            for mb in _split_micro(batch, tcfg.microbatches):
-                loss_mb, metrics_mb, g = _value_and_grad(model, params, cfg, tcfg, mb)
-                for name, gi in zip(names, g):
-                    grads[name].add_(gi)
-                del g
-                losses.append(loss_mb)
-                per_mb.append(metrics_mb)
-            for acc in grads.values():
-                acc.div_(tcfg.microbatches)
-            loss = torch.stack(losses).sum() / tcfg.microbatches
-            metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
-        else:
-            loss, metrics, g = _value_and_grad(model, params, cfg, tcfg, batch)
-            grads = dict(zip(names, g))
-        lr = learning_rate(step, tcfg.schedule)
-        _, opt_state, gnorm = adamw_update(named, grads, opt_state, lr, tcfg.optimizer)
+        with contextlib.ExitStack() as scope:
+            if mesh is not None:
+                scope.enter_context(use_mesh(mesh))
+                scope.enter_context(axis_rules(rules))
+                if not is_dtensor(model.embed.w):
+                    shard_model(model, mesh)
+                shard_opt_state(opt_state, param_axes(model), mesh)
+            named = dict(model.named_parameters())
+            frozen = [name for name, p in named.items() if not p.requires_grad]
+            if frozen:
+                raise ValueError(f"parameters {frozen[:3]}... do not require grad: build the "
+                                 "model with init_train_state or call model.requires_grad_(True)")
+            names, params = list(named), list(named.values())
+            loss, metrics, grads = grads_of(model, names, params, batch)
+            lr = learning_rate(step, tcfg.schedule)
+            _, opt_state, gnorm = adamw_update(named, grads, opt_state, lr, tcfg.optimizer)
         return model, opt_state, {"loss": loss, "lr": lr, "grad_norm": gnorm, **metrics}
 
     return train_step
@@ -119,8 +183,9 @@ def init_train_state(generator: torch.Generator, cfg: ArchConfig, tcfg: TrainCon
                      device="cuda"):
     """(model, opt_state): ``backbone.init_model`` drawn from ``generator``
     (which lives on ``device``) with its parameters set to require grad,
-    and zero AdamW state.  The reference also returns the logical axis specs,
-    which wait for the sharding port."""
+    and zero AdamW state.  The reference also returns the logical axis specs:
+    here ``weights.param_axes(model)`` and ``optimizer.opt_state_axes`` give
+    them, and ``make_train_step(..., mesh=)`` lays both out."""
     model = backbone.init_model(cfg, generator=generator, device=device)
     model.requires_grad_(True)
     return model, init_opt_state(model, tcfg.optimizer)

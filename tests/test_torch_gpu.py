@@ -31,6 +31,7 @@ from repro_torch.train import (
     TrainConfig,
     checkpoint,
     fault_tolerance,
+    init_opt_state,
     init_train_state,
     loss_fn,
     make_train_step,
@@ -237,6 +238,53 @@ def test_sharded_prefill_on_card_over_gloo(dev, tmp_path):
     for rank in row["ranks"]:
         assert rank["moe_collectives"]["all_to_all"] == 2 * model_run.case_config(case).n_layers
         assert rank["host_staged_bytes"] > 0 and rank["pairs_dropped"] == 0
+
+
+def test_sharded_train_step_on_card_over_gloo(dev, tmp_path):
+    """One train step of the dbrx smoke MoE in f32 on two ranks of this card
+    (a (data 1, model 2) mesh, expert parallel, every token on both ranks, so
+    the capacity and the balance loss are one process's): the loss, the
+    norm and the updated parameters and moments equal one process's, and
+    the backward ran the MoE's reverse ``all_to_all`` pair."""
+    case = model_run.Case("dbrx-132b", kind="train", mesh=(1, 2), batch=2, seq=64, smoke=True,
+                          param_dtype="float32", capacity_factor=8.0, save_state=True)
+    (row,) = model_run.run([case], workdir=str(tmp_path), device="cuda")
+    cfg, tcfg = model_run.case_config(case), model_run.train_config(case)
+    model = model_run.seeded_model(case, "cuda").requires_grad_(True)
+    opt = init_opt_state(model, tcfg.optimizer)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in model_run.case_batch(case).items()}
+    _, _, metrics = make_train_step(cfg, tcfg)(model, opt, batch, model_run.TRAIN_WARMUP)
+    for rank in row["ranks"]:
+        np.testing.assert_allclose(rank["loss"], float(metrics["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(rank["grad_norm"], float(metrics["grad_norm"]), rtol=1e-5)
+        by_phase = rank["moe_collectives_by_phase"]
+        assert by_phase["forward"]["all_to_all"] == by_phase["backward"]["all_to_all"] == \
+            2 * cfg.n_layers
+    for name, p in model.named_parameters():
+        for key, want, atol in (("params", p, 2e-5), ("m", opt["m"][name], 1e-7),
+                                ("v", opt["v"][name], 1e-8)):
+            np.testing.assert_allclose(row["state"][f"{key}.{name}"],
+                                       want.detach().cpu().numpy(), atol=atol, rtol=0)
+
+
+def test_sharded_decode_on_card_over_gloo(dev, tmp_path):
+    """The StarCoder2-3B smoke engine in f32 on two ranks of this card (its
+    query heads split over model, its 2 kv heads one a rank): every step's
+    logits and the greedy tokens equal one process's engine's."""
+    case = model_run.Case("starcoder2-3b", kind="decode", mesh=(1, 2), batch=2, seq=8, new=4,
+                          kv_len=16, smoke=True, param_dtype="float32", all_positions=True)
+    (row,) = model_run.run([case], workdir=str(tmp_path), device="cuda")
+    engine = ServeEngine(model_run.case_config(case), model_run.seeded_model(case, "cuda"),
+                         batch=case.batch, kv_len=case.kv_len, device="cuda")
+    prompts = torch.from_numpy(model_run.case_tokens(case))
+    every = [engine.prefill(prompts[:, t:t + 1]) for t in range(case.seq)]
+    tokens = []
+    for _ in range(case.new):
+        tokens.append(engine.generate(1))
+        every.append(engine.last_logits)
+    np.testing.assert_allclose(row["logits_all"], torch.stack(every).float().cpu().numpy(),
+                               atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(row["tokens"], torch.cat(tokens, 1).cpu().numpy())
 
 
 # tests/test_flash_attention.py SWEEP: b, sq, sk, h, kvh, d, causal; plus ragged

@@ -15,6 +15,9 @@ every position.  At f32, as the reference's own mesh tests
   shard on every rank, tokens sequence-parallel, no ``all_to_all``;
 * StarCoder2-3B smoke under ``tp``, through the flash kernel's plain version
   on each rank's local heads;
+* the three of them (the MoEs at capacity 8.0) under ``fsdp``, ``fsdp_sp``
+  and ``tp2d``: the forward that training differentiates, ``tp2d`` with the
+  MoE's ``extra_ffn`` over data and ``_StridedShard`` placements;
 
 each against the single-device forward and the reference's mesh forward
 (which equals it there: nothing is dropped at capacity 8.0), and the MoEs at
@@ -60,6 +63,16 @@ CASES = [
     ("starcoder_tp", model_run.Case("starcoder2-3b", mode="tp", batch=BATCH, seq=SEQ,
                                     smoke=True, param_dtype="float32", all_positions=True,
                                     use_flash=True), True),
+] + [
+    # fsdp (embed over data), fsdp_sp and tp2d (ffn and vocab over model x data:
+    # the MoE's hidden dim split over data too, a _StridedShard layout)
+    (f"{label}_{mode}", model_run.Case(arch, mode=mode, moe_sharding=sharding, batch=BATCH,
+                                       seq=SEQ, smoke=True, param_dtype="float32",
+                                       capacity_factor=cf, all_positions=True), True)
+    for mode in ("fsdp", "fsdp_sp", "tp2d")
+    for label, arch, sharding, cf in (("dbrx", "dbrx-132b", None, 8.0),
+                                      ("grok", "grok-1-314b", "ffn", 8.0),
+                                      ("starcoder", "starcoder2-3b", None, None))
 ]
 
 
@@ -170,8 +183,11 @@ def test_sharded_forward_collectives_by_kind(runs, name):
         # EP: the dispatch and the return, one pair a layer; TP: none
         assert moe["all_to_all"] == (2 * cfg.n_layers if expert_parallel else 0)
         assert rank["collectives"].get("all_to_all", 0) == moe["all_to_all"]
-        if not expert_parallel:  # tp_sp: tokens gathered over model, outputs scattered back
-            assert moe["all_gather"] == moe["reduce_scatter"] == cfg.n_layers
+        # the tokens gathered over an axis that splits both them and the
+        # experts' hidden dim, the outputs scattered back: over model under
+        # sequence parallelism (TP), over data under tp2d
+        gathers = int(not expert_parallel and case.mode.endswith("_sp")) + int(case.mode == "tp2d")
+        assert moe["all_gather"] == moe["reduce_scatter"] == gathers * cfg.n_layers
         assert rank["pairs_routed"] > 0
         if drop_free:
             assert rank["pairs_dropped"] == 0
@@ -212,15 +228,23 @@ class FakeMesh:
     shape = (2, 4)
 
 
+@pytest.mark.parametrize("step", ["forward", "decode"])
 @pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-1.2b", "internvl2-1b", "whisper-small"])
-def test_families_not_ported_to_the_mesh_raise_under_one(arch):
+def test_families_not_ported_to_the_mesh_raise_under_one(arch, step):
     from repro_torch.dist.sharding import use_mesh
     from repro_torch.models import backbone
 
     cfg = get_smoke(arch)
     model = backbone.Backbone(cfg, device="meta")
-    with use_mesh(FakeMesh()), pytest.raises(NotImplementedError, match="item 8"):
-        backbone.forward(model, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with use_mesh(FakeMesh()), pytest.raises(NotImplementedError, match="item 8.4"):
+        if step == "forward":
+            backbone.forward(model, cfg, {"tokens": tokens})
+        else:
+            state = backbone.init_decode_state(cfg, 1, 8, device="meta")
+            backbone.decode_step(model, cfg, state, tokens[:, :1], 0)
+    with pytest.raises(NotImplementedError, match="item 8.4"):
+        backbone.init_decode_state(cfg, 1, 8, device="meta", mesh=FakeMesh())
 
 
 def test_unsharded_model_and_decode_raise_under_a_mesh():
@@ -234,7 +258,7 @@ def test_unsharded_model_and_decode_raise_under_a_mesh():
         with pytest.raises(ValueError, match="shard_model"):
             backbone.forward(model, cfg, {"tokens": tokens})
         state = backbone.init_decode_state(cfg, 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(ValueError, match="shard_model"):
             backbone.decode_step(model, cfg, state, tokens[:, :1], 0)
 
 

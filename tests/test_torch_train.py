@@ -215,18 +215,6 @@ def test_xent_all_padding_labels_give_zero_loss_and_grads():
     assert txent.sharded_xent(_t(x @ w.T), _t(labels), 80).item() == 0.0
 
 
-def test_vocab_parallel_xent_over_a_vocab_mesh_is_not_ported():
-    class Mesh:  # the two things the check reads of a DeviceMesh
-        mesh_dim_names = ("data", "model")
-
-        def size(self):
-            return 4
-
-    x, w, labels = _xent_inputs(0, 80, 80, 0)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        txent.vocab_parallel_xent(_t(x), _t(w), _t(labels), 80, mesh=Mesh())
-
-
 # ---------------------------------------------------------------------- data
 @pytest.mark.parametrize("arch,seed,step", [("starcoder2_3b", 0, 0), ("minicpm_2b", 7, 11),
                                             ("command_r_35b", 3, 4096)])
