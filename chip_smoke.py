@@ -130,11 +130,11 @@ drives the main path through the entry points a user calls, at the paper's
 14. training and decode over the same mesh, one run at a time:
    ``make_train_step(cfg, tcfg, mesh=, rules=)`` and ``ServeEngine(...,
    mesh=, rules=)`` through ``dist.model_run`` on the 8 ranks: 14a
-   StarCoder2-3B trained at full width and depth under ``fsdp`` (2 x 4096
-   tokens, a warm-up and a timed step), 14b dbrx-132b (1 of 40 layers)
+   StarCoder2-3B trained at full width (4 of 30 layers) under ``fsdp`` (2 x
+   4096 tokens, a warm-up and a timed step), 14b dbrx-132b (1 of 40 layers)
    under ``fsdp``, expert parallel, at a drop-free capacity on 2 x 512 and
-   at its config's on 2 x 1024; 14c StarCoder2-3B and 14d dbrx-132b (2 of
-   40 layers) decoded under ``tp`` (batch 8, 32 prompt and 16 greedy
+   at its config's on 2 x 1024; 14c StarCoder2-3B (4 of 30 layers) and 14d
+   dbrx-132b (2 of 40 layers) decoded under ``tp`` (batch 8, 32 prompt and 16 greedy
    tokens).  Each is held to one process's run on the same seeded weights:
    rank 0's first loss within 1% and gradient norm within 5%, the dense
    loss falling; the decode's logits within 5% of the largest (14d with
@@ -142,7 +142,22 @@ drives the main path through the entry points a user calls, at the paper's
    share of equal greedy tokens printed; the MoE's own ``all_to_all``
    counted forward and backward.  Each rank's peak memory, the slowest
    rank's time, collectives by kind forward and backward and bytes staged
-   through the host are printed (host-staged ``gloo``, not NCCL).
+   through the host are printed (host-staged ``gloo``, not NCCL).  14e
+   trains StarCoder2-3B (full width, 4 of 30 layers, 2 x 4096 tokens) under
+   ``tp2d``, whose ``_StridedShard`` gradient layouts torch 2.11's DTensor
+   cannot redistribute into (``sharding.redistribute`` reduces and slices),
+   held as 14a;
+15. the ssm, hybrid, vlm and audio families over the same mesh at their
+   published widths and depths in bf16 (xlstm-125m, zamba2-1.2b,
+   internvl2-1b, whisper-small), in one spawn after the parent's
+   one-process run of each: 15a-d prefill under ``tp`` on 2 x 2048
+   positions (internvl2's 256 seeded patches first; whisper's 1,500 seeded
+   frames and 448 text tokens), rank 0's logits within 5% of the largest
+   of one process's and the flash kernel on each rank's local heads held
+   to its plain version; 15e-h one warm-up and one timed train step under
+   ``fsdp`` (``remat="full"``, each config's AdamW state, 2 x 1024
+   positions; whisper 2 x 448), held as 14a; 15i-l decode under ``tp``
+   (batch 8, 32 prompt and 16 greedy tokens, KV caches of 64), held as 14c.
 
 The build prints ptxas's report of every kernel (registers, spills) and the
 bf16 flash kernel's geometry (tiles, stages, dynamic shared memory, the
@@ -150,8 +165,8 @@ registers ``setmaxnreg`` gives its producer and consumer warpgroups, and its
 TMA boxes), held equal to the wrapper's ``hopper_geometry``.  The
 GF kernel's launches are counted over phases 2-5 (``launches``, comparable
 with earlier runs) and per phase (``launches_by_phase``: 2-5, 7 summed over
-the ranks, 8, 9, 11g, 12, 14), the flash kernel's over 6b-6c, 10a-e and 13
-(summed over the ranks; and over 9, 11 and 14, where it must be 0).  Any
+the ranks, 8, 9, 11g, 12, 14, 15), the flash kernel's over 6b-6c, 10a-e, 13
+and 15 (summed over the ranks; and over 9, 11 and 14, where it must be 0).  Any
 mismatch or exception exits non-zero.  The last three lines of standard
 output are the kernels JSON line, the card's name and power limit, and the
 result line.
@@ -340,14 +355,12 @@ SHARDED_DENSE = (2, 4096)  # 13a's prefill: 2 x 4096 tokens (its window)
 SHARDED_MOE_PARITY = (2, 1024)
 SHARDED_MOE = (2, 2048)
 # phase 14: training and decode over phase 13's mesh, one run at a time.
-# 14a StarCoder2-3B trained at full width and depth under ``fsdp``: 2 x 4096
-# tokens (one row a data half) in one microbatch, every block
-# rematerialised, KV chunks of 512, its config's f32 AdamW, WSD at peak 1e-4
-# entered past its warm-up (``model_run.train_config``, as 9a): a warm-up
-# step, then a timed one.  Reckoning: 3.18e9
-# parameters over 8 ranks, bf16 weights and gradients and f32 moments, 4.8
-# GB a rank and 38 GB in all, with 0.75 GB a rank of rematerialised inputs
-# and one layer's gathered weights on top.  14b dbrx-132b trained at 1 of 40
+# 14a StarCoder2-3B trained at full width under ``fsdp``, 4 of 30 layers
+# (cut from 30, which took 34.1 s a step, to leave room for phase 15 in the
+# script's time): 2 x 4096 tokens (one row a data half) in one microbatch,
+# every block rematerialised, KV chunks of 512, its config's f32 AdamW, WSD
+# at peak 1e-4 entered past its warm-up (``model_run.train_config``, as
+# 9a): a warm-up step, then a timed one.  14b dbrx-132b trained at 1 of 40
 # layers under ``fsdp`` (expert parallel; its config's bf16 AdamW state):
 # 4.49e9 parameters, 8 bytes each over 8 ranks, 4.5 GB a rank and 36 GB in
 # all, and each rank's 4 experts gathered over data (1.6 GB); at the
@@ -356,7 +369,8 @@ SHARDED_MOE = (2, 2048)
 # (and at the drop-free capacity on 2 x 1024) a rank's rematerialised
 # experts' f32 products, (4, 2560, 10752) and (4, 4096, 10752), ran the card
 # out of memory, 78.3 of 79.2 GB in use by 9 processes
-# 14c StarCoder2-3B (full) and 14d dbrx-132b (2 of 40 layers, 31 GB across
+# 14c StarCoder2-3B (full width, 4 of 30 layers: cut from 30, 1.41 s a
+# token, as 14a) and 14d dbrx-132b (2 of 40 layers, 31 GB across
 # the ranks, as 13b) decoded under ``tp``: batch 8, 32-token prompts fed
 # through the decode step, then 16 greedy tokens, KV caches of 64.  14d's
 # parity run routes every token to all 16 experts: at the config's top 4 of
@@ -364,15 +378,32 @@ SHARDED_MOE = (2, 2048)
 # near-tied 4th expert, and a row whose expert flipped departs (on the
 # H100 one of 8 rows by 13% of the largest logit, the other 7 within 1.4%);
 # the config's top 4 then runs for the time and the greedy tokens
-MESH_TRAIN = [("14a", "starcoder2-3b", None, (2, 4096)), ("14b", "dbrx-132b", 1, (2, 1024))]
+# 14e StarCoder2-3B at full width, 4 of 30 layers, under ``tp2d`` (ffn and
+# vocab over model x data, the parameters' ``_StridedShard`` layouts): 2 x
+# 4096 tokens, a warm-up step and a timed one, held as 14a
+MESH_TRAIN = [("14a", "starcoder2-3b", 4, (2, 4096), "fsdp"),
+              ("14b", "dbrx-132b", 1, (2, 1024), "fsdp"),
+              ("14e", "starcoder2-3b", 4, (2, 4096), "tp2d")]
 MESH_TRAIN_MOE_PARITY = (2, 512)
 MESH_TRAIN_STEPS = 2  # a warm-up step, then a timed one
-MESH_DECODE = [("14c", "starcoder2-3b", None), ("14d", "dbrx-132b", 2)]
+MESH_DECODE = [("14c", "starcoder2-3b", 4), ("14d", "dbrx-132b", 2)]
 MESH_DECODE_BATCH, MESH_DECODE_PROMPT, MESH_DECODE_NEW, MESH_DECODE_KV = 8, 32, 16, 64
 # rank 0's first step against one process's on the same seeded weights and
 # batch: bf16 activations, other orders of sums (the mesh's partial sums and
 # reductions) and, for the MoE, the balance loss of each rank's own tokens
 MESH_LOSS_RTOL, MESH_NORM_RTOL = 0.01, 0.05
+# phase 15: the ssm, hybrid, vlm and audio families at their published
+# widths and depths in bf16 over phase 13's mesh, in one spawn: (labels of
+# the prefill, train and decode runs, arch).  Prefill under ``tp`` on
+# FAMILY_MESH_PREFILL positions a row (internvl2's 256 patches among them;
+# whisper's 1,500 frames and WHISPER_TEXT tokens), training under ``fsdp``
+# on FAMILY_MESH_TRAIN (whisper WHISPER_TEXT), ``remat="full"`` and each
+# config's AdamW state, decode under ``tp`` as 14c.  The sLSTM's time loop
+# runs whole on each rank (wh gathered once a block)
+FAMILY_MESH = [(("15a", "15e", "15i"), "xlstm-125m"), (("15b", "15f", "15j"), "zamba2-1.2b"),
+               (("15c", "15g", "15k"), "internvl2-1b"), (("15d", "15h", "15l"), "whisper-small")]
+FAMILY_MESH_PREFILL = (2, 2048)
+FAMILY_MESH_TRAIN = (2, 1024)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1547,8 +1578,8 @@ def phase_sharded() -> tuple[dict, int]:
 def mesh_cases() -> list[tuple[str, str, model_run.Case]]:
     """14's runs: (label, ``parity`` or ``config``, case), in order."""
     out = []
-    for label, arch, layers, (b, s) in MESH_TRAIN:
-        base = dict(arch=arch, kind="train", mode="fsdp", mesh=SHARDED_MESH, layers=layers,
+    for label, arch, layers, (b, s), mode in MESH_TRAIN:
+        base = dict(arch=arch, kind="train", mode=mode, mesh=SHARDED_MESH, layers=layers,
                     remat="full", seed=SEED)
         moe = get_config(arch).moe
         if moe is None:
@@ -1573,15 +1604,41 @@ def mesh_cases() -> list[tuple[str, str, model_run.Case]]:
     return out
 
 
+def family_mesh_cases() -> list[tuple[str, str, model_run.Case]]:
+    """15's runs: (label, ``parity``, case); each family's prefill and decode
+    under ``tp`` follow each other, so the ranks build its model once for
+    both, then its train run builds its own."""
+    out = []
+    for (pre, train, dec), arch in FAMILY_MESH:
+        cfg = get_config(arch)
+        base = dict(arch=arch, mesh=SHARDED_MESH, seed=SEED)
+        text = WHISPER_TEXT if cfg.family == "audio" else None
+        b, s = FAMILY_MESH_PREFILL
+        out.append((pre, "parity", model_run.Case(**base, mode="tp", batch=b, seq=text or s)))
+        out.append((dec, "parity", model_run.Case(
+            **base, kind="decode", mode="tp", batch=MESH_DECODE_BATCH, seq=MESH_DECODE_PROMPT,
+            new=MESH_DECODE_NEW, kv_len=MESH_DECODE_KV)))
+        b, s = FAMILY_MESH_TRAIN
+        out.append((train, "parity", model_run.Case(
+            **base, kind="train", mode="fsdp", batch=b, seq=text or s, remat="full",
+            steps=MESH_TRAIN_STEPS)))
+    return out
+
+
 def mesh_reference(case: model_run.Case) -> dict:
-    """One process's run of a phase-14 case on the same seeded weights: a
-    train case's first step (its loss, norm and the pairs it dropped), or a
-    decode case's engine (the logits at the last prompt position and the
-    greedy tokens).  Everything it allocated is freed."""
+    """One process's run of a phase-14 or -15 case on the same seeded
+    weights: a prefill's logits at the last position, a train case's first
+    step (its loss, norm and the pairs it dropped), or a decode case's
+    engine (the logits at the last prompt position and the greedy tokens;
+    the audio family's frames through its encoder first).  Everything it
+    allocated is freed."""
     cfg = model_run.case_config(case)
     model = model_run.seeded_model(case, DEVICE)
-    with obs.tracing("14 reference") as tr:
-        if case.kind == "train":
+    with obs.tracing("mesh reference") as tr:
+        if case.kind == "prefill":
+            inputs = {k: torch.from_numpy(v) for k, v in model_run.case_inputs(case).items()}
+            out = {"logits": make_prefill_step(cfg, device=DEVICE)(model, inputs).float().cpu()}
+        elif case.kind == "train":
             tcfg = model_run.train_config(case)
             model.requires_grad_(True)
             opt = init_opt_state(model, tcfg.optimizer)
@@ -1593,7 +1650,10 @@ def mesh_reference(case: model_run.Case) -> dict:
             del opt, batch, metrics
         else:
             engine = ServeEngine(cfg, model, batch=case.batch, kv_len=case.kv_len, device=DEVICE)
-            logits = engine.prefill(torch.from_numpy(model_run.case_tokens(case)))
+            inputs = model_run.case_inputs(case)
+            if "frames" in inputs:
+                engine.encode(torch.from_numpy(inputs["frames"]))
+            logits = engine.prefill(torch.from_numpy(inputs["tokens"]))
             out = {"logits": logits.float().cpu(), "tokens": engine.generate(case.new).cpu()}
             del engine, logits
     out["pairs_dropped"] = int(tr.counter_value("moe.pairs.dropped"))
@@ -1615,10 +1675,14 @@ def _mesh_row(ranks: list[dict]) -> dict:
             "pairs_dropped_by_rank": [r["pairs_dropped"] for r in ranks]}
 
 
-def phase_mesh_train_decode(smi: str) -> tuple[dict, int]:
-    """14: ``make_train_step(cfg, tcfg, mesh=, rules=)`` and ``ServeEngine(...,
+def phase_mesh_runs(smi: str, phase: str, cases: list) -> tuple[dict, int]:
+    """14 and 15: ``make_prefill_step(cfg, mesh=, rules=)``,
+    ``make_train_step(cfg, tcfg, mesh=, rules=)`` and ``ServeEngine(...,
     mesh=, rules=)`` through ``dist.model_run`` on 8 gloo ranks sharing this
-    card.  Each run's reference is one process's on the same seeded weights
+    card, ``cases`` (label, role, case) in one spawn.  A prefill's rank 0
+    logits are held within ``PREFILL_RTOL`` of the largest of one
+    process's, every rank's first flash call's local shards to the plain
+    version, and its flash launches to ``flash_per_forward`` a rank.  Each run's reference is one process's on the same seeded weights
     and inputs, run here before the ranks start: rank 0's first train step's
     loss within ``MESH_LOSS_RTOL`` and its gradient norm within
     ``MESH_NORM_RTOL`` of one process's (the MoE at a drop-free capacity,
@@ -1629,21 +1693,23 @@ def phase_mesh_train_decode(smi: str) -> tuple[dict, int]:
     forward, and in a train step's backward its reverse pair and the
     rematerialised forward's.  Each run's line is printed before it is
     checked.  Returns the results and the flash launches, summed over the
-    ranks (none: training takes the chunked attention, decode its cache
-    path)."""
-    cases = mesh_cases()
+    ranks (none in training, which takes the chunked attention, and in
+    decode only the audio decoder's cross-attention's, one a layer a
+    step)."""
     refs = {}
+    before = flash_attention.launches
     for label, role, case in cases:
         if role == "parity" or case.kind == "decode":
             t = time.perf_counter()
             refs[f"{label} {role}"] = {**mesh_reference(case), "host_s": time.perf_counter() - t}
+    flash_attention.launches = before  # the references' launches are yardsticks
     parent_bytes = torch.cuda.memory_allocated()
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         rows = model_run.run([case for _, _, case in cases], workdir=d, device=DEVICE)
-    out = {"14 ranks": {"spawn_host_s": time.perf_counter() - t,
-                        "parent_allocated_bytes": parent_bytes}}
-    print(f"[14 ranks] {json.dumps(out['14 ranks'])}")
+    out = {f"{phase} ranks": {"spawn_host_s": time.perf_counter() - t,
+                              "parent_allocated_bytes": parent_bytes}}
+    print(f"[{phase} ranks] {json.dumps(out[f'{phase} ranks'])}")
     launches = 0
     for (label, role, case), row in zip(cases, rows):
         cfg = model_run.case_config(case)
@@ -1658,7 +1724,15 @@ def phase_mesh_train_decode(smi: str) -> tuple[dict, int]:
         ref = refs.get(f"{label} {role}")
         if ref is not None:
             res["one_process_host_s"] = ref["host_s"]
-        if case.kind == "train":
+        if case.kind == "prefill":
+            got = torch.from_numpy(row["logits"])
+            res.update(max_abs_err_vs_one_process=float((got - ref["logits"]).abs().max())
+                       if got.shape == ref["logits"].shape else None,
+                       largest_logit=float(ref["logits"].abs().max()),
+                       flash_max_abs_err=max((r["flash_max_abs_err"] or 0.0) for r in ranks),
+                       flash_launches_by_rank=[r["flash_launches"] for r in ranks],
+                       **_mesh_row(ranks))
+        elif case.kind == "train":
             res["steps"] = [{"step": at[0]["step"], "loss": at[0]["loss"],
                              "grad_norm": at[0]["grad_norm"], "moe_aux": at[0]["moe_aux"],
                              "loss_by_rank": [r["loss"] for r in at], **_mesh_row(at)}
@@ -1683,15 +1757,25 @@ def phase_mesh_train_decode(smi: str) -> tuple[dict, int]:
         print(f"[{label} {role}] {smi}, 8 gloo ranks on one card, host-staged gloo times, not "
               f"a network or NCCL figure: {json.dumps(res)}")
         out[f"{label} {role}"] = res
-        check(row["flash_launches"] == 0, f"{label} {role}: the flash kernel was launched")
+        if case.kind == "prefill":
+            check_mesh_prefill(label, cfg, res, got)
+        else:
+            want = 0
+            if case.kind == "decode" and cfg.family == "audio":  # the encoder, then the
+                steps = case.seq + case.new                      # cross-attention a step
+                want = SHARDED_MESH[0] * SHARDED_MESH[1] * (cfg.encoder_layers
+                                                            + cfg.n_layers * steps)
+            check(row["flash_launches"] == want, f"{label} {role}: {row['flash_launches']} "
+                  f"flash launches over the ranks, want {want}")
         if case.kind == "train":
             check_mesh_train(label, role, cfg, res, ref)
-        else:
+        elif case.kind == "decode":
             check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits")
             check(tuple(got.shape) == (case.batch, cfg.padded_vocab),
                   f"{label}: logits of shape {tuple(got.shape)}")
             if role == "parity":
-                check(res["max_abs_err_vs_one_process"] <= PREFILL_RTOL * res["largest_logit"],
+                rtol = ENGINE_RTOL.get(cfg.family, ENGINE_RTOL_DEFAULT)
+                check(res["max_abs_err_vs_one_process"] <= rtol * res["largest_logit"],
                       f"{label}: rank 0's logits are {res['max_abs_err_vs_one_process']} from "
                       f"one process's (largest logit {res['largest_logit']})")
             if cfg.moe is not None:
@@ -1701,8 +1785,24 @@ def phase_mesh_train_decode(smi: str) -> tuple[dict, int]:
     return out, launches
 
 
+def check_mesh_prefill(label: str, cfg, res: dict, got: torch.Tensor) -> None:
+    """15a–d's checks of one prefill's printed result (see phase_mesh_runs)."""
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits")
+    check(res["max_abs_err_vs_one_process"] is not None and
+          res["max_abs_err_vs_one_process"] <= PREFILL_RTOL * res["largest_logit"],
+          f"{label}: rank 0's logits are {res['max_abs_err_vs_one_process']} from one "
+          f"process's (largest logit {res['largest_logit']})")
+    want = flash_per_forward(cfg)
+    check(all(n == want for n in res["flash_launches_by_rank"]),
+          f"{label}: flash launches by rank {res['flash_launches_by_rank']}, want {want} each")
+    check(res["flash_max_abs_err"] <= FLASH_ATOL[torch.bfloat16],
+          f"{label}: the flash kernel on local shards is {res['flash_max_abs_err']} from its "
+          f"plain version")
+
+
 def check_mesh_train(label: str, role: str, cfg, res: dict, ref: dict | None) -> None:
-    """14a–b's checks of one run's printed result (see phase_mesh_train_decode)."""
+    """14a–b, 14e and 15e–h's checks of one run's printed result (see
+    phase_mesh_runs)."""
     for step in res["steps"]:
         losses = step["loss_by_rank"]
         check(all(math.isfinite(x) for x in losses), f"{label} {role}: losses {losses}")
@@ -1961,9 +2061,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     t = time.perf_counter()
     gf_matmul_batched.launches = 0
-    _, mesh_launches_14 = phase_mesh_train_decode(smi)
+    _, mesh_launches_14 = phase_mesh_runs(smi, "14", mesh_cases())
     gf_launches_14 = gf_matmul_batched.launches
     phases["mesh train and decode"] = {"host_s": time.perf_counter() - t}
+
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    gf_matmul_batched.launches = 0
+    _, mesh_launches_15 = phase_mesh_runs(smi, "15", family_mesh_cases())
+    check(mesh_launches_15 > 0, "phase 15 launched the flash kernel no time")
+    gf_launches_15 = gf_matmul_batched.launches
+    phases["mesh families"] = {"host_s": time.perf_counter() - t}
 
     head = k1["timings"][0]  # DRC(9,6,3) full-width parity encode
     kernels = {"kernels": [{
@@ -1974,7 +2082,8 @@ def main() -> int:
         "launches": launches,
         "launches_by_phase": {"2-5": launches, "7": mesh_launches, "8": eval_launches,
                               "9": train_launches, "11g": ck11["gf_launches"],
-                              "12": demo_launches, "14": gf_launches_14},
+                              "12": demo_launches, "14": gf_launches_14,
+                              "15": gf_launches_15},
         "max_abs_err": kc.max_abs_err,
         "mismatched_bytes": kc.mismatched,
         "ms": head["ms"],
@@ -1994,13 +2103,14 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28",
         "launches": (flash_launches + sum(family_launches.values()) + sharded_launches
-                     + mesh_launches_14),
+                     + mesh_launches_14 + mesh_launches_15),
         "launches_by_phase": {"6b-6c": flash_launches, "9": train_flash_launches,
                               **{f"{label} {arch}": family_launches[label]
                                  for label, arch, _ in FAMILIES},
                               "11": sum(family_train.values()),
                               "13 (8 ranks)": sharded_launches,
-                              "14 (8 ranks)": mesh_launches_14},
+                              "14 (8 ranks)": mesh_launches_14,
+                              "15 (8 ranks)": mesh_launches_15},
         "max_abs_err": fl["max_abs_err"],
         "rel_fro_err": fl["rel_fro_err"],
         "max_err_over_scale": fl["max_err_over_scale"],

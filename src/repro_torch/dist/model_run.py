@@ -26,7 +26,8 @@ Each rank, for each case in turn:
   ``obs.tracing`` and a :class:`CollectiveCounter`:
 
   - ``prefill``: ``make_prefill_step(cfg, mesh=, rules=make_rules(mode))``
-    on the case's tokens (:func:`case_tokens`, the same on every rank); with
+    on the case's inputs (:func:`case_inputs`: tokens, and the vlm's patches
+    or the audio frames, the same on every rank); with
     ``all_positions``, ``backbone.forward`` under the mesh once more for
     every position's logits and the MoE's ``aux``;
   - ``train``: ``steps`` steps of ``make_train_step(cfg, train_config(case),
@@ -34,7 +35,8 @@ Each rank, for each case in turn:
     ``TRAIN_WARMUP``, each timed on its own; with ``save_state`` the updated
     parameters and moments, gathered;
   - ``decode``: a ``ServeEngine`` over the mesh fed the case's ``seq``-token
-    prompts one step at a time, then ``new`` greedy tokens; with
+    prompts one step at a time (the audio family's frames through its
+    encoder first), then ``new`` greedy tokens; with
     ``all_positions``, every step's logits.
 
 Each rank writes ``workdir/rank<r>.json``; rank 0 also writes the gathered
@@ -137,22 +139,60 @@ def case_config(case: Case) -> ArchConfig:
     return cfg
 
 
-def case_tokens(case: Case) -> np.ndarray:
-    """The case's prompts, (batch, seq) int32, from numpy's generator seeded
-    with ``seed`` (so any process, of either package, draws the same)."""
+STUB_EMBED_STD = 0.02  # the stub patch and frame embeddings' scale (train/data.py's)
+
+
+def _text_len(case: Case, cfg: ArchConfig) -> int:
+    """The token ids of a row: ``seq`` less the vlm's patches, which come
+    first in a prefill or train row (a decode's prompt is text alone)."""
+    if case.kind != "decode" and cfg.family == "vlm":
+        return case.seq - cfg.vision_tokens
+    return case.seq
+
+
+def _side_inputs(cfg: ArchConfig, rng: np.random.Generator, batch: int) -> dict:
+    """The family's stub inputs, f32, drawn after the token ids: the vlm's
+    ``vis_embeds`` (batch, vision_tokens, d), the audio ``frames`` (batch,
+    encoder_seq, d)."""
+    out = {}
+    if cfg.family == "vlm" and cfg.vision_tokens:
+        out["vis_embeds"] = rng.standard_normal(
+            (batch, cfg.vision_tokens, cfg.d_model)).astype(np.float32) * STUB_EMBED_STD
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32) * STUB_EMBED_STD
+    return out
+
+
+def case_inputs(case: Case) -> dict[str, np.ndarray]:
+    """A prefill or decode case's inputs, from numpy's generator seeded with
+    ``seed`` (so any process, of either package, draws the same): ``tokens``
+    (batch, text) int32, then the family's ``vis_embeds`` or ``frames``."""
     cfg = case_config(case)
     rng = np.random.default_rng(case.seed)
-    return rng.integers(0, cfg.vocab, size=(case.batch, case.seq), dtype=np.int32)
+    tokens = rng.integers(0, cfg.vocab, size=(case.batch, _text_len(case, cfg)), dtype=np.int32)
+    return {"tokens": tokens, **_side_inputs(cfg, rng, case.batch)}
+
+
+def case_tokens(case: Case) -> np.ndarray:
+    """The case's prompts (``case_inputs``' token ids)."""
+    return case_inputs(case)["tokens"]
 
 
 def case_batch(case: Case) -> dict[str, np.ndarray]:
     """A train case's batch: ``tokens`` and the next tokens as ``labels``,
-    (batch, seq) int32 each, from (batch, seq + 1) tokens drawn by numpy's
-    generator seeded with ``seed``."""
+    from (batch, text + 1) tokens drawn by numpy's generator seeded with
+    ``seed``, then the family's side inputs; the vlm's labels also cover its
+    patch positions, with -1 (no loss) there, so they are (batch, seq)."""
     cfg = case_config(case)
     rng = np.random.default_rng(case.seed)
-    rows = rng.integers(0, cfg.vocab, size=(case.batch, case.seq + 1), dtype=np.int32)
-    return {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+    rows = rng.integers(0, cfg.vocab, size=(case.batch, _text_len(case, cfg) + 1),
+                        dtype=np.int32)
+    out = {"tokens": rows[:, :-1], "labels": rows[:, 1:], **_side_inputs(cfg, rng, case.batch)}
+    if "vis_embeds" in out:
+        out["labels"] = np.concatenate(
+            [np.full((case.batch, cfg.vision_tokens), -1, np.int32), out["labels"]], axis=1)
+    return out
 
 
 # a train case's steps are numbered from the end of the WSD schedule's
@@ -295,12 +335,12 @@ def _run_prefill(i: int, case: Case, model, mesh: Any, rank: int, device: str,
                  workdir: str) -> dict:
     cfg = case_config(case)
     rules = make_rules(case.mode)
-    tokens = torch.from_numpy(case_tokens(case))
+    inputs = {key: torch.from_numpy(val) for key, val in case_inputs(case).items()}
     step = make_prefill_step(cfg, device=device, mesh=mesh, rules=rules,
                              use_flash=case.use_flash)
     launches = flash_attention.launches
     with attention.record_flash_inputs() as captured, _timed(device) as run_:
-        logits = step(model, {"tokens": tokens})
+        logits = step(model, inputs)
     launches = flash_attention.launches - launches
     full = logits.full_tensor().float().cpu().numpy()
     row = {"rank": rank, **_measured(run_, device),
@@ -309,7 +349,8 @@ def _run_prefill(i: int, case: Case, model, mesh: Any, rank: int, device: str,
         np.save(os.path.join(workdir, f"case{i}.npy"), full)
     if case.all_positions:
         with torch.no_grad(), use_mesh(mesh), axis_rules(rules):
-            every, aux = backbone.forward(model, cfg, {"tokens": tokens.to(device)},
+            every, aux = backbone.forward(model, cfg, {key: val.to(device)
+                                                       for key, val in inputs.items()},
                                           use_flash=case.use_flash)
             every = every.full_tensor().float().cpu().numpy()
         row["aux"] = float(aux)
@@ -377,10 +418,13 @@ def _run_decode(i: int, case: Case, model, mesh: Any, rank: int, device: str,
     cfg = case_config(case)
     engine = ServeEngine(cfg, model, batch=case.batch, kv_len=case.kv_len, device=device,
                          mesh=mesh, rules=make_rules(case.mode))
-    prompts = torch.from_numpy(case_tokens(case))
+    inputs = case_inputs(case)
+    prompts = torch.from_numpy(inputs["tokens"])
     launches = flash_attention.launches
     every = []
     with _timed(device) as prefill:
+        if "frames" in inputs:  # the audio decoder reads the encoder's output
+            engine.encode(torch.from_numpy(inputs["frames"]))
         for t in range(case.seq):  # one step at a time: every step's logits
             every.append(engine.prefill(prompts[:, t:t + 1]))
     with _timed(device) as generate:

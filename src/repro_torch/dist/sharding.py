@@ -223,6 +223,69 @@ def placements(spec: Sequence[Entry], mesh: Any) -> tuple:
     return tuple(out)
 
 
+def redistribute(x, pl: Sequence[Any]):
+    """``x.redistribute(x.device_mesh, pl)``, where a ``_StridedShard`` in
+    ``pl`` (tp2d's layout of a dimension split model-major over data and
+    model) is reached without asking DTensor to move into it, which torch
+    2.11's DTensor cannot: x goes to ``pl`` with that mesh dimension
+    replicated, then each rank keeps its own block along it by a local slice
+    (``DTensor.from_local``: nothing more is communicated), the block
+    ``local_slices`` gives it."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    mesh = x.device_mesh
+    strided = [i for i, p in enumerate(pl) if isinstance(p, _StridedShard)]
+    if not strided:
+        return x.redistribute(mesh, tuple(pl))
+    movable = [Replicate() if i in strided else p for i, p in enumerate(pl)]
+    local = x.redistribute(mesh, movable).to_local()
+    for i in strided:  # the outer axis: a minor block within the inner axis's
+        local = local.chunk(mesh.size(i), dim=pl[i].dim)[mesh.get_local_rank(i)]
+    return DTensor.from_local(local.contiguous(), mesh, tuple(pl), run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+class _Unstrided(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import DTensor, Replicate
+        from torch.distributed.tensor.placement_types import _StridedShard
+
+        ctx.placements = x.placements
+        mesh, local = x.device_mesh, x.to_local()
+        movable = list(x.placements)
+        for i, p in enumerate(x.placements):
+            if isinstance(p, _StridedShard):  # the rank's blocks along mesh dim i, in order
+                ops = torch.ops._c10d_functional
+                t = ops.all_gather_into_tensor(local.movedim(p.dim, 0).contiguous(),
+                                               mesh.size(i), mesh.get_group(i).group_name)
+                local = ops.wait_tensor(t).movedim(0, p.dim)
+                movable[i] = Replicate()
+        return DTensor.from_local(local.contiguous(), mesh, movable, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+    @staticmethod
+    def backward(ctx, g):
+        return redistribute(g, ctx.placements)
+
+
+def unstrided(x):
+    """x, where it is a DTensor laid out with a ``_StridedShard`` (tp2d's
+    ``ffn``/``vocab`` parameters), gathered whole along that mesh dimension
+    by hand, the rest of its layout kept; its gradient goes back into x's
+    own layout through :func:`redistribute`.  torch 2.11's DTensor can take
+    such a tensor into an op, but cannot move the op's gradient back into
+    the ``_StridedShard`` (the backward of its own redistribution), so
+    every reader of a parameter that may be laid out so takes it through
+    here."""
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    if not is_dtensor(x) or not any(isinstance(p, _StridedShard) for p in x.placements):
+        return x
+    return _Unstrided.apply(x)
+
+
 def grad_placements(pl: Sequence[Any], mesh: Any, varying: Sequence[str]) -> tuple:
     """The placements of the gradient of a ``local_map`` input laid out as
     ``pl``: a mesh dimension that shards it keeps its shard, one that

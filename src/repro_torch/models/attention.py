@@ -31,19 +31,11 @@ from typing import Iterator
 import torch
 from torch import nn
 
-from repro_torch.dist.sharding import (
-    ambient_mesh,
-    axes_of,
-    grad_placements,
-    is_dtensor,
-    mesh_sizes,
-    placements,
-    resolve_spec,
-)
+from repro_torch.dist.sharding import ambient_mesh, is_dtensor, placements, resolve_spec
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import NEG_INF, streaming_attention
 
-from .common import Dense, apply_rope, rope_angles, spec
+from .common import Dense, HeadLayout, apply_rope, block_start, rope_angles, spec
 from .config import ArchConfig
 
 
@@ -137,14 +129,13 @@ def attention(
     cross-attention: only q is projected from x, neither q nor k gets RoPE,
     and the mask is bidirectional, as in the reference.
 
-    A DTensor x under an ambient mesh takes ``_attention_sharded``."""
+    A DTensor x under an ambient mesh takes ``_attention_sharded``; there
+    ``cross_kv`` holds the unsplit projections ``cross_kv()`` gives of a
+    DTensor."""
     mesh = ambient_mesh()
     if mesh is not None and is_dtensor(x):
-        if cross_kv is not None:
-            raise NotImplementedError("cross-attention over a mesh is not ported "
-                                      "(ROADMAP queue 1, item 8.4)")
         return _attention_sharded(p, cfg, x, mesh, causal=causal, chunk=chunk,
-                                  use_flash=use_flash)
+                                  use_flash=use_flash, cross_kv=cross_kv)
     if cross_kv is None:
         return p.wo(_local_attention(p.wq(x), p.wk(x), p.wv(x), cfg=cfg, h0=0, causal=causal,
                                      chunk=chunk, use_flash=use_flash))
@@ -170,9 +161,10 @@ def _kv_read(cfg: ArchConfig, h0: int, hl: int, kv0: int, k, v):
 
 
 def _local_attention(q2, k2, v2, *, cfg: ArchConfig, h0: int, causal: bool, chunk: int,
-                     use_flash: bool | None) -> torch.Tensor:
+                     use_flash: bool | None, rope: bool = True) -> torch.Tensor:
     """One rank's attention: q2 (B, S, Hl*hd) its query heads h0..h0+Hl,
-    k2/v2 (B, S, kvH*hd) every kv head, each over the whole sequence.
+    k2/v2 (B, Sk, kvH*hd) every kv head, each over the whole sequence (Sk
+    = S, or the encoder's length for cross-attention, ``rope=False``).
 
     Query head h reads kv head ``h // (H // kvH)``: the rank keeps the kv
     heads its query heads read, and where its heads do not split evenly over
@@ -183,15 +175,16 @@ def _local_attention(q2, k2, v2, *, cfg: ArchConfig, h0: int, causal: bool, chun
     k, v = _kv_read(cfg, h0, hl, 0, _split_heads(k2, cfg.n_kv_heads, hd),
                     _split_heads(v2, cfg.n_kv_heads, hd))
     q = _split_heads(q2, hl, hd)
-    positions = torch.arange(s, device=q2.device)[None, :]
-    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
-    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if rope:
+        positions = torch.arange(s, device=q2.device)[None, :]
+        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     out = _attend(q, k, v, causal=causal, chunk=chunk, use_flash=use_flash)
     return out.reshape(b, s, hl * hd)
 
 
 def _attention_sharded(p: Attention, cfg: ArchConfig, x, mesh, *, causal: bool, chunk: int,
-                       use_flash: bool | None):
+                       use_flash: bool | None, cross_kv=None):
     """Attention of a DTensor x over ``mesh``.
 
     The projections are DTensor products of the sharded weights.  The
@@ -199,34 +192,35 @@ def _attention_sharded(p: Attention, cfg: ArchConfig, x, mesh, *, causal: bool, 
     GSPMD partition of its chunked scan): q laid out as the reference's
     constraint ``(batch, seq, heads, None)`` resolves on the head count, with
     the sequence kept whole (the kernel and the chunked path take whole
-    sequences), k and v with every head on every rank.  So the flash kernel
-    runs on each rank's local heads, and its plain version on the same
-    shards."""
+    sequences), k and v with every head on every rank (``HeadLayout``).  So
+    the flash kernel runs on each rank's local heads, and its plain version
+    on the same shards.  Cross-attention runs the same core on the encoder's
+    k and v, bidirectional and without RoPE."""
     from torch.distributed.tensor.experimental import local_map
 
     b, s, _ = x.shape
-    hd = cfg.head_dim
-    q_spec = resolve_spec(("batch", None, "heads", None), (b, s, cfg.n_heads, hd), mesh)
-    q_pl = placements(q_spec[:3], mesh)
-    kv_pl = placements((q_spec[0], None, None), mesh)
-    h0 = 0
-    if q_spec[2] is not None:
-        h0 = mesh.get_local_rank(q_spec[2]) * (cfg.n_heads // mesh_sizes(mesh)[q_spec[2]])
+    lay = HeadLayout(mesh, b, s, cfg.n_heads, cfg.head_dim)
     # k and v: each rank's query heads read only their own kv heads, so the
     # gradient sums over the axis that splits the heads
-    kv_grad = grad_placements(kv_pl, mesh, axes_of(q_spec[2]))
     core = local_map(
-        functools.partial(_local_attention, cfg=cfg, h0=h0, causal=causal, chunk=chunk,
-                          use_flash=use_flash),
-        out_placements=list(q_pl), in_placements=(q_pl, kv_pl, kv_pl),
-        in_grad_placements=(q_pl, kv_grad, kv_grad), device_mesh=mesh,
+        functools.partial(_local_attention, cfg=cfg, h0=lay.h0,
+                          causal=causal and cross_kv is None, chunk=chunk, use_flash=use_flash,
+                          rope=cross_kv is None),
+        out_placements=list(lay.heads), in_placements=(lay.heads, lay.whole, lay.whole),
+        in_grad_placements=(lay.heads, lay.whole_grad, lay.whole_grad), device_mesh=mesh,
         redistribute_inputs=True)
-    return p.wo(core(p.wq(x), p.wk(x), p.wv(x)))
+    k2, v2 = (p.wk(x), p.wv(x)) if cross_kv is None else cross_kv
+    return p.wo(core(p.wq(x), k2, v2))
 
 
 def cross_kv(p: Attention, cfg: ArchConfig, enc: torch.Tensor):
     """Encoder K/V for cross-attention (the whisper decoder): (B, Sk, kvH, hd)
-    each, without RoPE."""
+    each, without RoPE.  Of a DTensor ``enc`` (over a mesh) the projections
+    (B, Sk, kvH*hd) unsplit: each rank splits the heads it reads inside
+    attention's ``local_map``, as DTensor cannot unflatten a dimension
+    sharded at other than a head's boundary."""
+    if is_dtensor(enc):
+        return p.wk(enc), p.wv(enc)
     hd = cfg.head_dim
     k = _split_heads(p.wk(enc), cfg.n_kv_heads, hd)
     v = _split_heads(p.wv(enc), cfg.n_kv_heads, hd)
@@ -316,17 +310,11 @@ def _decode_attention_sharded(p: Attention, cfg: ArchConfig, x, cache: dict, pos
     if not all(is_dtensor(t) and t.placements == c_pl for t in cache.values()):
         raise ValueError("the decode state is not laid out over the ambient mesh: make it "
                          "with backbone.init_decode_state(..., mesh=)")
-    q_spec = resolve_spec(("batch", None, "heads", None), (b, 1, cfg.n_heads, hd), mesh)
-    q_pl = placements(q_spec[:3], mesh)
+    lay = HeadLayout(mesh, b, 1, cfg.n_heads, hd)
     kv_pl = placements((c_spec[0], None, c_spec[2]), mesh)
-    sizes = mesh_sizes(mesh)
-    h0 = kv0 = 0
-    if q_spec[2] is not None:
-        h0 = mesh.get_local_rank(q_spec[2]) * (cfg.n_heads // sizes[q_spec[2]])
-    if c_spec[2] is not None:
-        kv0 = mesh.get_local_rank(c_spec[2]) * (cfg.n_kv_heads // sizes[c_spec[2]])
+    kv0 = block_start(mesh, c_spec[2], cfg.n_kv_heads)
     core = local_map(
-        functools.partial(_local_decode, cfg=cfg, h0=h0, kv0=kv0, position=position),
-        out_placements=list(q_pl), in_placements=(q_pl, kv_pl, kv_pl, c_pl, c_pl),
+        functools.partial(_local_decode, cfg=cfg, h0=lay.h0, kv0=kv0, position=position),
+        out_placements=list(lay.heads), in_placements=(lay.heads, kv_pl, kv_pl, c_pl, c_pl),
         device_mesh=mesh, redistribute_inputs=True)
     return p.wo(core(p.wq(x), p.wk(x), p.wv(x), cache["k"], cache["v"]))

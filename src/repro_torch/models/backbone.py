@@ -23,6 +23,10 @@ with a leading layer axis (plus ``"enc"`` for audio), ``{"blocks": [...]}``
 for ssm, and ``{"mamba": {"h", "conv"}, "shared_kv": {"k", "v"}}`` for
 hybrid, leading axes over layers and over shared-block calls.
 ``decode_step`` writes the KV caches and the Mamba2 states in place.
+
+Every family runs laid out over a ``(data, model)`` mesh (``use_mesh``): the
+model by ``weights.shard_model``, the decode state by
+``init_decode_state(..., mesh=)``, each activation a DTensor.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from repro_torch.dist.sharding import (
     placements,
     resolve_spec,
     shard_tensor,
+    unstrided,
 )
 
 from .common import DTYPES, Embedding, Norm, constrain, spec
@@ -226,30 +231,24 @@ def init_model(cfg: ArchConfig, *, generator: torch.Generator, device="cuda") ->
 
 
 # ==================================================================== forward
-MESH_LATER = "is not ported yet (ROADMAP queue 1, item 8.4)"
-MESH_FAMILIES = ("dense", "moe")  # the families that run over a mesh
-
-
 def _mesh_of_many():
     """The ambient mesh if one of its dimensions has more than one device."""
     mesh = ambient_mesh()
     return mesh if mesh is not None and any(n > 1 for n in mesh_sizes(mesh).values()) else None
 
 
-def _check_mesh(p: Backbone, cfg: ArchConfig, what: str = "forward") -> None:
-    """Under a mesh of more than one device, only a sharded model of a
-    family ported to the mesh runs: never a silently replicated one."""
+def _check_mesh(p: Backbone) -> None:
+    """Under a mesh of more than one device only a sharded model runs: never
+    a silently replicated one."""
     if _mesh_of_many() is None:
         return
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(f"the {cfg.family} family's {what} over a mesh {MESH_LATER}")
     if not is_dtensor(p.embed.w):
         raise ValueError("the model is not laid out over the ambient mesh: "
                          "call models.weights.shard_model(model, mesh) first")
 
 
 def lm_head_weight(p: Backbone, cfg: ArchConfig) -> torch.Tensor:
-    return p.embed.w if cfg.tie_embeddings else p.lm_head.w
+    return unstrided(p.embed.w if cfg.tie_embeddings else p.lm_head.w)
 
 
 def _logits(p: Backbone, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -271,7 +270,13 @@ def _embed_inputs(p: Backbone, cfg: ArchConfig, batch: dict) -> torch.Tensor:
                   else shard_tensor(tokens, mesh, whole))  # every rank holds the whole batch
     x = p.embed(tokens) * cfg.embed_scale
     if cfg.family == "vlm" and "vis_embeds" in batch:
-        x = torch.cat([batch["vis_embeds"].to(x.dtype), x], dim=1)
+        vis = batch["vis_embeds"].to(x.dtype)
+        if mesh is not None:  # both laid out alike, the sequence whole, for the cat
+            spec_ = resolve_spec(("batch", None, "embed"), x.shape, mesh)
+            x = x.redistribute(mesh, placements(spec_, mesh))
+            vis = (vis.redistribute(mesh, x.placements) if is_dtensor(vis)
+                   else shard_tensor(vis, mesh, spec_))
+        x = torch.cat([vis, x], dim=1)
     return constrain(x, "batch", "seq", "embed")
 
 
@@ -285,8 +290,12 @@ def _run_encoder(p: Backbone, cfg: ArchConfig, frames: torch.Tensor, *,
                  use_flash: bool | None = None) -> torch.Tensor:
     """Whisper encoder over the frame embeddings (B, frames, d) (the conv
     frontend is a stub in the reference too): bidirectional self-attention
-    with RoPE, KV chunks of 512."""
+    with RoPE, KV chunks of 512.  Under an ambient mesh, frames that every
+    rank holds whole are laid out ``("batch", None, "embed")`` first."""
     x = frames.to(DTYPES[cfg.param_dtype])
+    mesh = ambient_mesh()
+    if mesh is not None and not is_dtensor(x):
+        x = shard_tensor(x, mesh, resolve_spec(("batch", None, "embed"), x.shape, mesh))
     block = _remat(_encoder_block, cfg)
     for bp in p.encoder:
         x = block(bp, cfg, x, use_flash=use_flash)
@@ -300,13 +309,14 @@ def forward_hidden(p: Backbone, cfg: ArchConfig, batch: dict, *, chunk: int = 51
     Under autograd each block runs under ``cfg.remat`` (``_remat``); with
     grad off (serving) the blocks run as they are.
 
-    Under an ambient mesh (``dist.sharding.use_mesh``) the dense and moe
-    families run sharded: the model must have been laid out over it
-    (``weights.shard_model``); the tokens enter replicated, as the
-    reference's unsharded inputs, every activation is a DTensor laid out by
-    the ``constrain`` points and DTensor's propagation, and the returned x
-    is one."""
-    _check_mesh(p, cfg)
+    Under an ambient mesh (``dist.sharding.use_mesh``) every family runs
+    sharded: the model must have been laid out over it
+    (``weights.shard_model``); the tokens, patches and frames enter
+    replicated, as the reference's unsharded inputs (or as DTensors), every
+    activation is a DTensor laid out by the ``constrain`` points and
+    DTensor's propagation, the per-rank cores (attention, mLSTM, sLSTM,
+    Mamba2) run in ``local_map``, and the returned x is one."""
+    _check_mesh(p)
     x = _embed_inputs(p, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     fam = cfg.family
@@ -327,7 +337,7 @@ def forward_hidden(p: Backbone, cfg: ArchConfig, batch: dict, *, chunk: int = 51
             for bp in p.mamba_main[gi * seg:(gi + 1) * seg]:
                 x = layer(bp, cfg, x)
             x, a = shared(p.shared, cfg, x, chunk=chunk, use_flash=use_flash)
-            aux = aux + a
+            aux = aux + (a.to_local() if is_dtensor(a) else a)
         for bp in getattr(p, "mamba_rem", ()):
             x = layer(bp, cfg, x)
     elif fam == "audio":
@@ -340,7 +350,7 @@ def forward_hidden(p: Backbone, cfg: ArchConfig, batch: dict, *, chunk: int = 51
         block = _remat(block, cfg)
         for bp in p.blocks:
             x, a = block(bp, x)
-            aux = aux + a
+            aux = aux + (a.to_local() if is_dtensor(a) else a)
     else:
         raise ValueError(fam)
     return p.ln_f(x), aux
@@ -392,22 +402,31 @@ def init_decode_state(cfg: ArchConfig, batch: int, kv_len: int, *, device="cuda"
     encoder_seq, d) for the caller to set, xLSTM states per block, Mamba2
     states stacked over layers and the shared block's caches over its calls.
 
-    With ``mesh`` (dense and moe) each leaf is a DTensor over it, laid out as
+    With ``mesh`` each leaf is a DTensor over it, laid out as
     ``decode_state_axes`` resolve under the ambient rules."""
+    state = _zero_decode_state(cfg, batch, kv_len, device)
+    if mesh is None:
+        return state
+
+    def lay_out(leaf, axes):
+        if isinstance(leaf, dict):
+            return {key: lay_out(sub, axes[key]) for key, sub in leaf.items()}
+        if isinstance(leaf, list):
+            return [lay_out(sub, ax) for sub, ax in zip(leaf, axes)]
+        return shard_tensor(leaf, mesh, resolve_spec(axes, leaf.shape, mesh))
+
+    return lay_out(state, decode_state_axes(cfg, batch, kv_len))
+
+
+def _zero_decode_state(cfg: ArchConfig, batch: int, kv_len: int, device) -> dict:
     dtype = DTYPES[cfg.param_dtype]
     fam = cfg.family
-    if mesh is not None and fam not in MESH_FAMILIES:
-        raise NotImplementedError(f"the {fam} family's decode over a mesh {MESH_LATER}")
     caches = attn.KVCacheSpec(batch, kv_len, cfg.n_kv_heads, cfg.head_dim, dtype)
     if fam in ("dense", "moe", "vlm", "audio"):
         state = {"kv": caches.zeros(cfg.n_layers, device)}
         if fam == "audio":
             state["enc"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model), dtype=dtype,
                                        device=device)
-        if mesh is not None:
-            axes = decode_state_axes(cfg, batch, kv_len)["kv"]
-            state["kv"] = {key: shard_tensor(leaf, mesh, resolve_spec(axes[key], leaf.shape, mesh))
-                           for key, leaf in state["kv"].items()}
         return state
     if fam == "ssm":
         return {"blocks": [
@@ -441,11 +460,13 @@ def decode_step(p: Backbone, cfg: ArchConfig, state: dict, tokens: torch.Tensor,
     The KV caches and Mamba2 states in ``state`` are written in place at
     ``position``; the xLSTM states are replaced.
 
-    Under an ambient mesh the dense and moe families run sharded, as the
-    forward does (the model laid out by ``weights.shard_model``, the state by
+    Under an ambient mesh every family runs sharded, as the forward does
+    (the model laid out by ``weights.shard_model``, the state by
     ``init_decode_state(..., mesh=)``): each rank writes its own shard of
-    the caches, and the logits are a DTensor."""
-    _check_mesh(p, cfg, "decode")
+    the caches and Mamba2 states, the xLSTM states come back laid out as
+    they went in, and the logits are a DTensor.  The audio state's ``enc``
+    is set by the caller (``ServeEngine.encode``)."""
+    _check_mesh(p)
     x = _embed_inputs(p, cfg, {"tokens": tokens})
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
@@ -475,10 +496,7 @@ def decode_step(p: Backbone, cfg: ArchConfig, state: dict, tokens: torch.Tensor,
         mstate = state["mamba"]
         layers = list(p.mamba_main) + list(getattr(p, "mamba_rem", ()))
         for i, bp in enumerate(layers):
-            y, new = m2.mamba2_decode(bp.core, cfg, bp.ln(x), _layer(mstate, i))
-            x = x + y
-            for key, leaf in new.items():
-                mstate[key][i] = leaf
+            x = x + m2.mamba2_decode(bp.core, cfg, bp.ln(x), _layer(mstate, i))[0]
             if i % seg == seg - 1 and i // seg < segs:  # the end of a segment
                 sh = p.shared
                 cache = _layer(state["shared_kv"], i // seg)

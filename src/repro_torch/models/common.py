@@ -21,10 +21,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.dist.sharding import (
+    axes_of,
     gather_inner,
     grad_as_laid_out,
+    grad_placements,
     is_dtensor,
     logical_constraint,
+    mesh_sizes,
+    placements,
+    resolve_spec,
+    unstrided,
 )
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -65,9 +71,9 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if is_dtensor(x):
             x = gather_inner(x)
-        y = x @ self.w
+        y = x @ unstrided(self.w)
         if self.b is not None:
-            y = y + self.b
+            y = y + unstrided(self.b)
         return grad_as_laid_out(y) if is_dtensor(y) else y
 
 
@@ -118,7 +124,7 @@ class Embedding(nn.Module):
             # re-cut tensor when a later redistribute also cuts the batch)
             from torch.distributed.tensor import Replicate
 
-            out = F.embedding(ids, self.w)
+            out = F.embedding(ids, unstrided(self.w))
             out = out.redistribute(out.device_mesh, [
                 Replicate() if p.is_partial() else p for p in out.placements])
             # a gradient arrives partial where no constraint redistributes it
@@ -153,3 +159,35 @@ def constrain(x: torch.Tensor, *names: str | None) -> torch.Tensor:
     DTensor under a mesh, a no-op without one (with a one-time warning if
     rules were explicitly set)."""
     return logical_constraint(x, names)
+
+
+def block_start(mesh, entry, size: int) -> int:
+    """Where this rank's block of a ``size``-long dimension laid out as spec
+    entry ``entry`` begins (its axes major first, as ``local_slices``)."""
+    index, parts = 0, 1
+    for axis in axes_of(entry):
+        n = mesh_sizes(mesh)[axis]
+        index, parts = index * n + mesh.get_local_rank(axis), parts * n
+    return index * (size // parts)
+
+
+class HeadLayout:
+    """How a per-rank core over heads lays its inputs out over ``mesh``:
+    the heads resolved as the reference's constraint ``(batch, seq, heads,
+    None)`` resolves them on the head count, with the sequence whole.
+
+    ``heads`` places a (B, S, H·hd) tensor cut on the rank's heads (whole
+    heads only: resolved on H, not on H·hd), ``whole`` a (B, S, ·) tensor
+    with every head on every rank, ``h0`` is the rank's first head, and
+    ``whole_grad`` the gradient placements of a ``whole`` input: partial
+    sums over the axis that splits the heads, since each rank reads only
+    its own heads of it (``sharding.grad_placements``)."""
+
+    def __init__(self, mesh, b: int, s: int, n_heads: int, head_dim: int) -> None:
+        q_spec = resolve_spec(("batch", None, "heads", None), (b, s, n_heads, head_dim), mesh)
+        self.batch, self.head_entry = q_spec[0], q_spec[2]
+        self.heads = placements(q_spec[:3], mesh)
+        self.whole = placements((q_spec[0], None, None), mesh)
+        self.h0 = block_start(mesh, q_spec[2], n_heads)
+        self.head_axes = axes_of(q_spec[2])
+        self.whole_grad = grad_placements(self.whole, mesh, self.head_axes)

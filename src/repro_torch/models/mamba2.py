@@ -12,11 +12,24 @@ it is plain tensor code there and here.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Dense, _param, constrain, spec
+from repro_torch.dist import mesh_collectives as mc
+from repro_torch.dist.sharding import (
+    ambient_mesh,
+    axes_of,
+    grad_placements,
+    is_dtensor,
+    placements,
+    resolve_spec,
+    unstrided,
+)
+
+from .common import Dense, _param, block_start, constrain, spec
 from .config import ArchConfig
 
 
@@ -121,21 +134,64 @@ def _ssd_chunked(x, dt, a, b, c, chunk: int) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def mamba2_block(p: Mamba2, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def _local_mamba(xz, bc, dt_raw, conv, a_log, d_skip, *, cfg: ArchConfig,
+                 c0: int) -> torch.Tensor:
+    """One rank's Mamba2 over its channels c0..c0+C (C = ``conv``'s, whole
+    heads): xz (B, S, 2·d_in) the fused input product with every channel of
+    x and z, bc (B, S, 2·d_state) and dt_raw (B, S, heads) whole.  Returns
+    the gated y (B, S, C)."""
     ssm = cfg.ssm
-    d_in = cfg.d_model * ssm.expand
-    n_heads = d_in // ssm.head_dim
-    bsz, s, _ = x.shape
-    xi, z = p.in_xz(x).chunk(2, dim=-1)
-    xi = F.silu(_conv1d(xi, p.conv))
-    b, c = p.in_bc(x).float().chunk(2, dim=-1)
-    dt = F.softplus(p.in_dt(x).float())  # (B,S,H)
-    a = -torch.exp(p.a_log)  # (H,)
-    xh = xi.reshape(bsz, s, n_heads, ssm.head_dim)
+    bsz, s, _ = xz.shape
+    d_in, cl = xz.shape[-1] // 2, conv.shape[-1]
+    h0, hl = c0 // ssm.head_dim, cl // ssm.head_dim
+    xi, z = xz[..., c0:c0 + cl], xz[..., d_in + c0:d_in + c0 + cl]
+    xi = F.silu(_conv1d(xi, conv))
+    b, c = bc.float().chunk(2, dim=-1)
+    dt = F.softplus(dt_raw[..., h0:h0 + hl].float())  # (B,S,Hl)
+    a = -torch.exp(a_log[h0:h0 + hl])  # (Hl,)
+    xh = xi.reshape(bsz, s, hl, ssm.head_dim)
     y = _ssd_chunked(xh, dt, a, b, c, ssm.chunk)
-    y = y + xh.float() * p.d_skip[None, None, :, None]
-    y = y.reshape(bsz, s, d_in).to(x.dtype)
-    y = y * F.silu(z)
+    y = y + xh.float() * d_skip[h0:h0 + hl][None, None, :, None]
+    y = y.reshape(bsz, s, cl).to(xz.dtype)
+    return y * F.silu(z)
+
+
+def mamba2_block(p: Mamba2, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The Mamba2 block over x (B, S, d).
+
+    Under an ambient mesh (x a DTensor) the input products are DTensor
+    products and the rest runs per rank in ``local_map`` over a block of
+    whole heads, laid out as ``ffn`` resolves on the head count (the axes
+    the tokens do not use).  The fused ``in_xz`` is sharded over ``ffn``
+    across x's and z's columns alike, so under model 4 ranks 0-1 would hold
+    x and ranks 2-3 z: its product is gathered whole (the rank then takes x
+    and z of its own channels) rather than the weight, which its gradient
+    would have to be reduced into whole too.  ``in_bc``, ``in_dt``,
+    ``a_log`` and ``d_skip`` are read whole, each rank its heads; the
+    output product's partial sums are reduced by the next constraint."""
+    xz, bc, dt_raw = p.in_xz(x), p.in_bc(x), p.in_dt(x)
+    mesh = ambient_mesh()
+    if mesh is None or not is_dtensor(x):
+        y = _local_mamba(xz, bc, dt_raw, p.conv, p.a_log, p.d_skip, cfg=cfg, c0=0)
+        return p.out(y)
+    from torch.distributed.tensor.experimental import local_map
+
+    ssm = cfg.ssm
+    b, s, _ = x.shape
+    d_in = cfg.d_model * ssm.expand
+    spec_ = resolve_spec(("batch", None, "ffn"), (b, s, d_in // ssm.head_dim), mesh)
+    whole = placements((spec_[0], None, None), mesh)
+    chans = placements(spec_, mesh)
+    conv_pl, vec_pl = placements((None, spec_[2]), mesh), placements((None,), mesh)
+    # a rank reads its channels of the whole inputs: their gradients are
+    # partial over the channels' axes, the weights' over the tokens' too
+    varying = axes_of(spec_[0]) + axes_of(spec_[2])
+    in_pl = (whole, whole, whole, conv_pl, vec_pl, vec_pl)
+    y = local_map(
+        functools.partial(_local_mamba, cfg=cfg, c0=block_start(mesh, spec_[2], d_in)),
+        out_placements=list(chans), in_placements=in_pl, device_mesh=mesh,
+        in_grad_placements=tuple(grad_placements(pl, mesh, varying) for pl in in_pl),
+        redistribute_inputs=True)(xz, bc, dt_raw, unstrided(p.conv), p.a_log, p.d_skip)
     y = constrain(y, "batch", "seq", "ffn")
     return p.out(y)
 
@@ -155,26 +211,80 @@ def mamba2_init_state(cfg: ArchConfig, batch: int, *, layers: int, device,
     }
 
 
-def mamba2_decode(p: Mamba2, cfg: ArchConfig, x: torch.Tensor, state: dict):
-    """One token: x (B,1,D) -> (y, new state {h, conv}).  O(1) in context."""
+def _local_mamba_decode(xz, bc, dt_raw, conv, a_log, d_skip, conv_state, h_state, *,
+                        cfg: ArchConfig, c0: int, gather=None) -> torch.Tensor:
+    """One rank's Mamba2 step: xz (B, 1, 2·d_in) every channel, its channels
+    c0..c0+C of the conv weight and of the conv window ``conv_state`` (B,
+    d_conv - 1, C), every head's ``h_state``; both states written in place.
+    ``gather`` brings the rank's conv outputs (B, 1, C) together into every
+    channel's, from which each rank steps every head, so ``h_state`` stays
+    alike on every rank.  Returns the gated y of its channels (B, 1, C)."""
     ssm = cfg.ssm
-    d_in = cfg.d_model * ssm.expand
+    bsz = xz.shape[0]
+    d_in, cl = xz.shape[-1] // 2, conv.shape[-1]
     n_heads = d_in // ssm.head_dim
-    bsz = x.shape[0]
-    xi, z = p.in_xz(x).chunk(2, dim=-1)
-    window = torch.cat([state["conv"], xi.to(state["conv"].dtype)], dim=1)
-    xi = torch.einsum("bkc,kc->bc", window, p.conv.to(window.dtype))[:, None, :]
-    new_conv = window[:, 1:, :]
+    window = torch.cat([conv_state, xz[..., c0:c0 + cl].to(conv_state.dtype)], dim=1)
+    xi = torch.einsum("bkc,kc->bc", window, conv.to(window.dtype))[:, None, :]
+    conv_state.copy_(window[:, 1:, :])
     xi = F.silu(xi)
-    b, c = p.in_bc(x).float().chunk(2, dim=-1)  # (B,1,N)
-    dt = F.softplus(p.in_dt(x).float())  # (B,1,H)
-    a = -torch.exp(p.a_log)
+    if gather is not None:
+        xi = gather(xi)
+    b, c = bc.float().chunk(2, dim=-1)  # (B,1,N)
+    dt = F.softplus(dt_raw.float())  # (B,1,H)
+    a = -torch.exp(a_log)
     xh = xi.reshape(bsz, n_heads, ssm.head_dim).float()
     decay = torch.exp(dt[:, 0, :, None, None] * a[None, :, None, None])
     update = torch.einsum("bh,bs,bhp->bhsp", dt[:, 0, :], b[:, 0, :], xh)
-    h_new = state["h"] * decay + update
-    y = torch.einsum("bs,bhsp->bhp", c[:, 0, :], h_new)
-    y = y + xh * p.d_skip[None, :, None]
-    y = y.reshape(bsz, 1, d_in).to(x.dtype)
-    y = y * F.silu(z)
-    return p.out(y), {"h": h_new, "conv": new_conv}
+    h_state.copy_(h_state * decay + update)
+    y = torch.einsum("bs,bhsp->bhp", c[:, 0, :], h_state)
+    y = y + xh * d_skip[None, :, None]
+    y = y.reshape(bsz, 1, d_in)[..., c0:c0 + cl].to(xz.dtype)
+    return y * F.silu(xz[..., d_in + c0:d_in + c0 + cl])
+
+
+def _gather_channels(t: torch.Tensor, mesh, entry) -> torch.Tensor:
+    """t (B, 1, C) of every rank along ``entry``'s axes, concatenated on the
+    channels in block order."""
+    t = t.movedim(-1, 0)
+    for axis in reversed(axes_of(entry)):  # the minor axis first
+        t = mc.all_gather(t, mesh, axis)
+    return t.movedim(0, -1)
+
+
+def mamba2_decode(p: Mamba2, cfg: ArchConfig, x: torch.Tensor, state: dict):
+    """One token: x (B,1,D) -> (y, state).  O(1) in context; the state's
+    ``h`` and ``conv`` are written in place.
+
+    Under an ambient mesh the state is laid out as
+    ``backbone.decode_state_axes`` says: the conv window on ``ffn``, ``h``
+    with every head on every rank.  Each rank steps its channels' conv
+    window, the conv outputs are gathered (B·d_in values, where ``h`` is
+    B·d_in·d_state), and every rank steps every head of ``h`` alike."""
+    xz, bc, dt_raw = p.in_xz(x), p.in_bc(x), p.in_dt(x)
+    mesh = ambient_mesh()
+    if mesh is None or not is_dtensor(x):
+        y = _local_mamba_decode(xz, bc, dt_raw, p.conv, p.a_log, p.d_skip, state["conv"],
+                                state["h"], cfg=cfg, c0=0)
+        return p.out(y), state
+    from torch.distributed.tensor.experimental import local_map
+
+    conv_spec = resolve_spec(("batch", None, "ffn"), state["conv"].shape, mesh)
+    h_spec = resolve_spec(("batch", "state", None, None), state["h"].shape, mesh)
+    own = {"conv": placements(conv_spec, mesh), "h": placements(h_spec, mesh)}
+    if not all(is_dtensor(state[key]) and state[key].placements == pl
+               for key, pl in own.items()):
+        raise ValueError("the decode state is not laid out over the ambient mesh: make it "
+                         "with backbone.init_decode_state(..., mesh=)")
+    whole = placements((conv_spec[0], None, None), mesh)
+    vec = placements((None,), mesh)
+    d_in = cfg.d_model * cfg.ssm.expand
+    entry = conv_spec[2]
+    core = functools.partial(
+        _local_mamba_decode, cfg=cfg, c0=block_start(mesh, entry, d_in),
+        gather=functools.partial(_gather_channels, mesh=mesh, entry=entry) if entry else None)
+    y = local_map(core, out_placements=list(own["conv"]), device_mesh=mesh,
+                  in_placements=(whole, whole, whole, placements((None, entry), mesh), vec, vec,
+                                 own["conv"], own["h"]),
+                  redistribute_inputs=True)(xz, bc, dt_raw, unstrided(p.conv), p.a_log,
+                                            p.d_skip, state["conv"], state["h"])
+    return p.out(y), state

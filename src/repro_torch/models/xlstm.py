@@ -12,11 +12,23 @@ kernel for these blocks: they are plain tensor code there and here.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Dense, constrain, spec
+from repro_torch.dist.sharding import (
+    ambient_mesh,
+    axes_of,
+    grad_placements,
+    is_dtensor,
+    placements,
+    resolve_spec,
+    unstrided,
+)
+
+from .common import Dense, HeadLayout, spec
 from .config import ArchConfig
 from .mamba2 import _chunks, _f32
 
@@ -92,17 +104,43 @@ def _mlstm_chunked(q, k, v, log_f, log_i, chunk: int) -> torch.Tensor:
     return (y / norm).to(q.dtype)
 
 
-def mlstm_block(p: MLSTM, cfg: ArchConfig, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
-    b, s, _ = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
-    q = p.wq(x).reshape(b, s, h, hd)
-    k = _inv_sqrt_scaled(p.wk(x).reshape(b, s, h, hd), hd)
-    v = p.wv(x).reshape(b, s, h, hd)
-    log_f = F.logsigmoid(_gate(p.wf, x))
-    log_i = -F.softplus(-_gate(p.wi, x))  # log sigmoid for stability
+def _local_mlstm(q2, k2, v2, zf, zi, *, cfg: ArchConfig, h0: int, chunk: int) -> torch.Tensor:
+    """One rank's mLSTM: q2/k2/v2 (B, S, Hl·hd) its heads h0..h0+Hl, zf/zi
+    (B, S, H) every head's f32 gate products, of which it reads its own."""
+    b, s, _ = q2.shape
+    hd = cfg.head_dim
+    hl = q2.shape[-1] // hd
+    q = q2.reshape(b, s, hl, hd)
+    k = _inv_sqrt_scaled(k2.reshape(b, s, hl, hd), hd)
+    v = v2.reshape(b, s, hl, hd)
+    log_f = F.logsigmoid(zf[..., h0:h0 + hl])
+    log_i = -F.softplus(-zi[..., h0:h0 + hl])  # log sigmoid for stability
     y = _mlstm_chunked(q, k, v, log_f, log_i, chunk)
-    y = constrain(y, "batch", "seq", "heads", None)
-    return p.wo(y.reshape(b, s, h * hd))
+    return y.reshape(b, s, hl * hd)
+
+
+def mlstm_block(p: MLSTM, cfg: ArchConfig, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """The mLSTM over x (B, S, d).  Of a DTensor x under an ambient mesh, the
+    projections are DTensor products and the recurrence runs per rank in
+    ``local_map`` over the rank's heads (``HeadLayout``, as attention's):
+    the replicated f32 gates ``wi``/``wf`` give every head's, and each rank
+    reads its own; ``wo``'s partial sums are reduced by the next
+    constraint."""
+    b, s, _ = x.shape
+    zf, zi = _gate(p.wf, x), _gate(p.wi, x)
+    mesh = ambient_mesh()
+    if mesh is None or not is_dtensor(x):
+        y = _local_mlstm(p.wq(x), p.wk(x), p.wv(x), zf, zi, cfg=cfg, h0=0, chunk=chunk)
+        return p.wo(y)
+    from torch.distributed.tensor.experimental import local_map
+
+    lay = HeadLayout(mesh, b, s, cfg.n_heads, cfg.head_dim)
+    core = local_map(
+        functools.partial(_local_mlstm, cfg=cfg, h0=lay.h0, chunk=chunk),
+        out_placements=list(lay.heads), device_mesh=mesh, redistribute_inputs=True,
+        in_placements=(lay.heads,) * 3 + (lay.whole,) * 2,
+        in_grad_placements=(lay.heads,) * 3 + (lay.whole_grad,) * 2)
+    return p.wo(core(p.wq(x), p.wk(x), p.wv(x), zf, zi))
 
 
 def mlstm_init_state(cfg: ArchConfig, batch: int, *, device) -> dict[str, torch.Tensor]:
@@ -110,19 +148,42 @@ def mlstm_init_state(cfg: ArchConfig, batch: int, *, device) -> dict[str, torch.
     return {"c": torch.zeros((batch, h, hd, hd), dtype=torch.float32, device=device)}
 
 
-def mlstm_decode(p: MLSTM, cfg: ArchConfig, x: torch.Tensor, state: dict):
-    b = x.shape[0]
-    h, hd = cfg.n_heads, cfg.head_dim
-    q = p.wq(x).reshape(b, h, hd)
-    k = _inv_sqrt_scaled(p.wk(x).reshape(b, h, hd), hd)
-    v = p.wv(x).reshape(b, h, hd)
-    f = torch.sigmoid(_gate(p.wf, x))[:, 0, :]
-    i = torch.sigmoid(_gate(p.wi, x))[:, 0, :]
-    c = state["c"] * f[:, :, None, None] + i[:, :, None, None] * torch.einsum(
+def _local_mlstm_decode(q2, k2, v2, zf, zi, c, *, cfg: ArchConfig, h0: int):
+    """One rank's mLSTM step: q2/k2/v2 (B, 1, Hl·hd) its heads, zf/zi (B,
+    1, H) every head's gate products, c (B, Hl, hd, hd) its heads' memory.
+    Returns (y (B, 1, Hl·hd), the new memory)."""
+    b = q2.shape[0]
+    hd = cfg.head_dim
+    hl = q2.shape[-1] // hd
+    q = q2.reshape(b, hl, hd)
+    k = _inv_sqrt_scaled(k2.reshape(b, hl, hd), hd)
+    v = v2.reshape(b, hl, hd)
+    f, i = torch.sigmoid(zf[:, 0, h0:h0 + hl]), torch.sigmoid(zi[:, 0, h0:h0 + hl])
+    c = c * f[:, :, None, None] + i[:, :, None, None] * torch.einsum(
         "bhd,bhe->bhde", k.float(), v.float())
     y = torch.einsum("bhd,bhde->bhe", q.float(), c)
     norm = torch.clamp(y.sum(dim=-1, keepdim=True).abs(), min=1.0)
-    y = (y / norm).reshape(b, 1, h * hd).to(x.dtype)
+    return (y / norm).reshape(b, 1, hl * hd).to(q2.dtype), c
+
+
+def mlstm_decode(p: MLSTM, cfg: ArchConfig, x: torch.Tensor, state: dict):
+    """One token.  Under an ambient mesh (x a DTensor) each rank steps its
+    own heads of the memory, laid out ``("batch", "heads", None, None)`` as
+    ``backbone.decode_state_axes`` says."""
+    f, i = _gate(p.wf, x), _gate(p.wi, x)
+    mesh = ambient_mesh()
+    if mesh is None or not is_dtensor(x):
+        y, c = _local_mlstm_decode(p.wq(x), p.wk(x), p.wv(x), f, i, state["c"], cfg=cfg, h0=0)
+        return p.wo(y), {"c": c}
+    from torch.distributed.tensor.experimental import local_map
+
+    lay = HeadLayout(mesh, x.shape[0], 1, cfg.n_heads, cfg.head_dim)
+    c_pl = state["c"].placements  # ("batch", "heads", None, None)
+    y, c = local_map(
+        functools.partial(_local_mlstm_decode, cfg=cfg, h0=lay.h0),
+        out_placements=(lay.heads, c_pl), device_mesh=mesh, redistribute_inputs=True,
+        in_placements=(lay.heads,) * 3 + (lay.whole,) * 2 + (c_pl,),
+    )(p.wq(x), p.wk(x), p.wv(x), f, i, state["c"])
     return p.wo(y), {"c": c}
 
 
@@ -139,11 +200,11 @@ class SLSTM(nn.Module):
         self.out = Dense(d, d, axes=spec("embed", "embed"), **kw)
 
 
-def _slstm_step(p: SLSTM, carry, zx: torch.Tensor):
+def _slstm_step(wh: torch.Tensor, carry, zx: torch.Tensor):
     """One time step from ``zx = wx(x_t)``: the input projection is the same
     product for every step, so ``slstm_block`` makes it once for all."""
     h_prev, c_prev, n_prev = carry
-    z = zx + p.wh(h_prev)
+    z = zx + h_prev @ wh
     zi, zf, zo, zc = z.float().chunk(4, dim=-1)
     i = torch.exp(torch.clamp(zi, max=8.0))  # exponential input gate (capped)
     f = torch.sigmoid(zf)
@@ -154,17 +215,47 @@ def _slstm_step(p: SLSTM, carry, zx: torch.Tensor):
     return (h, c, n), h
 
 
-def slstm_block(p: SLSTM, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    b, s, d = x.shape
-    carry = (x.new_zeros((b, d)),
-             torch.zeros((b, d), dtype=torch.float32, device=x.device),
-             torch.zeros((b, d), dtype=torch.float32, device=x.device))
-    zx = p.wx(x)
+def _slstm_scan(zx: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """The recurrence over zx (B, S, 4d) from a zero carry: the hidden
+    states (B, S, d)."""
+    b, _, d4 = zx.shape
+    f32 = dict(dtype=torch.float32, device=zx.device)
+    carry = (zx.new_zeros((b, d4 // 4)), torch.zeros((b, d4 // 4), **f32),
+             torch.zeros((b, d4 // 4), **f32))
     ys = []
-    for t in range(s):
-        carry, h = _slstm_step(p, carry, zx[:, t])
+    for t in range(zx.shape[1]):
+        carry, h = _slstm_step(wh, carry, zx[:, t])
         ys.append(h)
-    return p.out(torch.stack(ys, dim=1))
+    return torch.stack(ys, dim=1)
+
+
+def _whole_gates(mesh, zx) -> tuple:
+    """The placements of zx (B, S, 4d) with every gate and position on every
+    rank of its rows, of ``wh`` whole, and of ``wh``'s gradient: partial
+    sums over the axes that split the rows."""
+    spec = resolve_spec(("batch", None, None), zx.shape, mesh)
+    whole_w = placements((None, None), mesh)
+    return placements(spec, mesh), whole_w, grad_placements(whole_w, mesh, axes_of(spec[0]))
+
+
+def slstm_block(p: SLSTM, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """The sLSTM over x (B, S, d).  Under an ambient mesh ``wx`` and ``wh``
+    are ``ffn``-sharded over 4d, so a rank holds some gates and the step
+    needs all four: ``wx``'s product and ``wh`` are gathered once a block and
+    each rank runs the whole recurrence on its rows (in ``local_map``, the
+    reference's arithmetic), where a collective a step would cost thousands
+    a forward; ``wh``'s gradient goes back through the gather's transpose."""
+    zx = p.wx(x)
+    mesh = ambient_mesh()
+    if mesh is None or not is_dtensor(x):
+        return p.out(_slstm_scan(zx, p.wh.w))
+    from torch.distributed.tensor.experimental import local_map
+
+    zx_pl, wh_pl, wh_grad = _whole_gates(mesh, zx)
+    hs = local_map(_slstm_scan, out_placements=list(zx_pl), in_placements=(zx_pl, wh_pl),
+                   in_grad_placements=(zx_pl, wh_grad), device_mesh=mesh,
+                   redistribute_inputs=True)(zx, unstrided(p.wh.w))
+    return p.out(hs)
 
 
 def slstm_init_state(cfg: ArchConfig, batch: int, dtype, *, device) -> dict[str, torch.Tensor]:
@@ -176,7 +267,27 @@ def slstm_init_state(cfg: ArchConfig, batch: int, dtype, *, device) -> dict[str,
     }
 
 
+def _slstm_decode_step(zx, wh, h, c, n):
+    (h, c, n), y = _slstm_step(wh, (h, c, n), zx[:, 0])
+    return y[:, None, :], h, c, n
+
+
 def slstm_decode(p: SLSTM, cfg: ArchConfig, x: torch.Tensor, state: dict):
+    """One token.  Under an ambient mesh each rank steps the whole state of
+    its rows, as ``slstm_block`` does, from the gathered gates; the state
+    keeps the layout of ``backbone.decode_state_axes``."""
+    zx = p.wx(x)
     carry = (state["h"], state["c"], state["n"])
-    (h, c, n), y = _slstm_step(p, carry, p.wx(x[:, 0, :]))
-    return p.out(y)[:, None, :], {"h": h, "c": c, "n": n}
+    mesh = ambient_mesh()
+    if mesh is None or not is_dtensor(x):
+        y, h, c, n = _slstm_decode_step(zx, p.wh.w, *carry)
+        return p.out(y), {"h": h, "c": c, "n": n}
+    from torch.distributed.tensor.experimental import local_map
+
+    zx_pl, wh_pl, _ = _whole_gates(mesh, zx)
+    row_pl = state["h"].placements  # ("batch", "embed"): the rows' axes, embed whole
+    y, h, c, n = local_map(
+        _slstm_decode_step, out_placements=(zx_pl,) + (row_pl,) * 3,
+        in_placements=(zx_pl, wh_pl) + (row_pl,) * 3, device_mesh=mesh,
+        redistribute_inputs=True)(zx, unstrided(p.wh.w), *carry)
+    return p.out(y), {"h": h, "c": c, "n": n}

@@ -9,10 +9,10 @@ emits the same ``serve.prefill`` / ``serve.generate`` spans and
 
 It holds any family's decode state (``backbone.init_decode_state``).  For
 the audio family the caller sets ``engine.state["enc"]`` to the encoder's
-output (``backbone._run_encoder``) before the prefill, as with the
-reference's engine.
+output before the prefill, as with the reference's engine: ``encode(frames)``
+runs the encoder and sets it, laid out as the state.
 
-With a ``mesh`` (dense and moe) the model and the state are laid out over it
+With a ``mesh`` (any family) the model and the state are laid out over it
 under ``rules`` and every step runs sharded (``make_decode_step(...,
 mesh=)``); the logits a step returns are gathered (``full_tensor()``), so
 sampling and the returned logits and tokens are plain tensors, the same on
@@ -20,10 +20,12 @@ every rank.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch import obs
-from repro_torch.dist.sharding import Rules, axis_rules, current_rules, is_dtensor
+from repro_torch.dist.sharding import Rules, axis_rules, current_rules, is_dtensor, use_mesh
 from repro_torch.models import backbone
 from repro_torch.models.config import ArchConfig
 
@@ -43,12 +45,28 @@ class ServeEngine:
         self.kv_len = kv_len
         self.device = torch.device(device)
         rules = current_rules() if rules is None else rules
+        self.mesh, self.rules = mesh, rules
         with axis_rules(rules):
             self.state = backbone.init_decode_state(cfg, batch, kv_len, device=self.device,
                                                     mesh=mesh)
         self._step = make_decode_step(cfg, device=self.device, mesh=mesh, rules=rules)
         self.position = 0
         self.last_logits = None  # the last generate step's logits (B, padded_vocab)
+
+    @torch.no_grad()
+    def encode(self, frames) -> None:
+        """The audio family: set the state's ``enc`` to the encoder's output
+        over ``frames`` (B, encoder_seq, d), run over the engine's mesh where
+        it has one."""
+        frames = torch.as_tensor(frames, device=self.device)
+        with contextlib.ExitStack() as scope:
+            if self.mesh is not None:
+                scope.enter_context(use_mesh(self.mesh))
+                scope.enter_context(axis_rules(self.rules))
+            enc = backbone._run_encoder(self.model, self.cfg, frames)
+            if is_dtensor(enc):  # laid out as the state's own
+                enc = enc.redistribute(self.mesh, self.state["enc"].placements)
+            self.state["enc"] = enc
 
     def prefill(self, prompts) -> torch.Tensor:
         """prompts (B, S) int; feeds them through decode steps.  Returns the

@@ -32,6 +32,7 @@ from repro_torch.dist.sharding import (
     axis_rules,
     current_rules,
     is_dtensor,
+    redistribute,
     resolve_spec,
     shard_tensor,
     use_mesh,
@@ -107,17 +108,25 @@ def _value_and_grad(model, params: list, cfg: ArchConfig, tcfg: TrainConfig, bat
 def _pin_to_specs(grads, params: list) -> list:
     """Each gradient laid out as its parameter (the reference's
     ``with_sharding_constraint`` to the parameter's spec): partial sums are
-    reduced, and where the parameter is sharded, reduce-scattered."""
-    return [g.redistribute(p.device_mesh, p.placements)
+    reduced, and where the parameter is sharded, reduce-scattered (or, into
+    tp2d's ``_StridedShard``, reduced and sliced: ``sharding.redistribute``)."""
+    return [redistribute(g, p.placements)
             if is_dtensor(g) and g.placements != p.placements else g
             for g, p in zip(grads, params)]
 
 
+# the logical axes of a batch's inputs: token ids and labels by default
+_BATCH_AXES = {"vis_embeds": ("batch", "seq", "embed"), "frames": ("batch", None, "embed")}
+
+
 def _shard_batch(batch: dict, mesh, rules: Rules) -> dict:
-    """Each (rows, positions) tensor of ``batch``, which every rank holds
-    whole, as a DTensor sharded on its tokens (``("batch", "seq")``)."""
-    return {key: shard_tensor(val, mesh, resolve_spec(("batch", "seq"), val.shape, mesh, rules))
-            if val.dim() == 2 else val for key, val in batch.items()}
+    """Each tensor of ``batch``, which every rank holds whole, as a DTensor
+    laid out on its logical axes: token ids and labels ``("batch",
+    "seq")``, the vlm's patches ``("batch", "seq", "embed")``, the audio
+    frames ``("batch", None, "embed")`` (the reference's batch axes)."""
+    return {key: shard_tensor(val, mesh, resolve_spec(
+        _BATCH_AXES.get(key, ("batch", "seq")), val.shape, mesh, rules))
+        for key, val in batch.items()}
 
 
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, *, mesh=None,

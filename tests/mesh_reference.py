@@ -1,4 +1,5 @@
-"""Helpers of the port's mesh parity tests (``test_torch_mesh_{train,decode}``).
+"""Helpers of the port's mesh parity tests (``test_torch_mesh_{train,decode}``,
+``test_torch_mesh_families{,_train}``).
 
 The reference runs in a subprocess with 8 XLA CPU devices (a ``(data 2,
 model 4)`` mesh, as ``tests/test_dist.py`` runs it), and writes its arrays as
@@ -17,7 +18,9 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = {"dbrx-132b": "dbrx_132b", "grok-1-314b": "grok_1_314b",
-         "starcoder2-3b": "starcoder2_3b"}
+         "starcoder2-3b": "starcoder2_3b", "xlstm-125m": "xlstm_125m",
+         "zamba2-1.2b": "zamba2_1p2b", "internvl2-1b": "internvl2_1b",
+         "whisper-small": "whisper_small"}
 
 # reference-side helpers, pasted at the top of every subprocess's code
 PRELUDE = """
@@ -52,8 +55,8 @@ def case_config(case):
     return dataclasses.replace(cfg, moe=moe)
 
 
-def make_mesh():
-    return jax.make_mesh((2, 4), ("data", "model"),
+def make_mesh(shape=(2, 4)):
+    return jax.make_mesh(tuple(shape), ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
 """
 
@@ -83,6 +86,8 @@ def port_arrays(cfg, flat: dict) -> dict:
     """A reference parameter tree (dotted paths) under the port's names."""
     from repro_torch.models.weights import named_arrays
 
+    if cfg.family == "ssm":  # xlstm's blocks are a list: the paths are the names
+        return dict(flat)
     return named_arrays(cfg, nest(flat))
 
 

@@ -249,11 +249,8 @@ def test_sharded_train_step_on_card_over_gloo(dev, tmp_path):
     case = model_run.Case("dbrx-132b", kind="train", mesh=(1, 2), batch=2, seq=64, smoke=True,
                           param_dtype="float32", capacity_factor=8.0, save_state=True)
     (row,) = model_run.run([case], workdir=str(tmp_path), device="cuda")
-    cfg, tcfg = model_run.case_config(case), model_run.train_config(case)
-    model = model_run.seeded_model(case, "cuda").requires_grad_(True)
-    opt = init_opt_state(model, tcfg.optimizer)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in model_run.case_batch(case).items()}
-    _, _, metrics = make_train_step(cfg, tcfg)(model, opt, batch, model_run.TRAIN_WARMUP)
+    cfg = model_run.case_config(case)
+    model, opt, metrics = _one_process_step(case)
     for rank in row["ranks"]:
         np.testing.assert_allclose(rank["loss"], float(metrics["loss"]), rtol=1e-5)
         np.testing.assert_allclose(rank["grad_norm"], float(metrics["grad_norm"]), rtol=1e-5)
@@ -285,6 +282,60 @@ def test_sharded_decode_on_card_over_gloo(dev, tmp_path):
     np.testing.assert_allclose(row["logits_all"], torch.stack(every).float().cpu().numpy(),
                                atol=1e-4, rtol=0)
     np.testing.assert_array_equal(row["tokens"], torch.cat(tokens, 1).cpu().numpy())
+
+
+def _one_process_step(case):
+    """One process's first train step of ``case`` on this card: (model,
+    optimizer state, metrics)."""
+    cfg, tcfg = model_run.case_config(case), model_run.train_config(case)
+    model = model_run.seeded_model(case, "cuda").requires_grad_(True)
+    opt = init_opt_state(model, tcfg.optimizer)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in model_run.case_batch(case).items()}
+    _, _, metrics = make_train_step(cfg, tcfg)(model, opt, batch, model_run.TRAIN_WARMUP)
+    return model, opt, metrics
+
+
+def test_sharded_tp2d_train_step_on_card_over_gloo(dev, tmp_path):
+    """StarCoder2-3B smoke trained under ``tp2d`` in f32 on 8 ranks of this
+    card, 2 microbatches: each microbatch's gradients are pinned to their
+    parameters' ``_StridedShard`` layouts (ffn and vocab model-major over
+    model x data), which torch 2.11's DTensor cannot redistribute into
+    (``sharding.redistribute`` reduces and slices instead).  The loss, the
+    norm and the updated parameters and moments equal one process's."""
+    case = model_run.Case("starcoder2-3b", kind="train", mode="tp2d", batch=4, seq=32,
+                          smoke=True, param_dtype="float32", microbatches=2, xent_tile=64,
+                          save_state=True)
+    (row,) = model_run.run([case], workdir=str(tmp_path), device="cuda")
+    model, opt, metrics = _one_process_step(case)
+    for rank in row["ranks"]:
+        np.testing.assert_allclose(rank["loss"], float(metrics["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(rank["grad_norm"], float(metrics["grad_norm"]), rtol=1e-5)
+    for name, p in model.named_parameters():
+        for key, want, atol in (("params", p, 2e-5), ("m", opt["m"][name], 1e-7),
+                                ("v", opt["v"][name], 1e-8)):
+            np.testing.assert_allclose(row["state"][f"{key}.{name}"],
+                                       want.detach().cpu().numpy(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("arch,use_flash", [("zamba2-1.2b", None), ("whisper-small", False)])
+def test_sharded_family_prefill_on_card_over_gloo(dev, tmp_path, arch, use_flash):
+    """A family's smoke prefill in f32 on 8 ranks of this card under ``tp``:
+    zamba2's Mamba2 on each rank's heads from the gathered fused product and
+    its shared block through the flash kernel (head dim 32); whisper's
+    encoder, decoder and cross-attention on the ranks' heads (head dim 16,
+    which the kernel does not take: the chunked path).  Every position's
+    logits equal one process's."""
+    case = model_run.Case(arch, batch=4, seq=64, smoke=True, param_dtype="float32",
+                          all_positions=True, use_flash=use_flash)
+    (row,) = model_run.run([case], workdir=str(tmp_path), device="cuda")
+    cfg = model_run.case_config(case)
+    inputs = {k: torch.from_numpy(v).cuda() for k, v in model_run.case_inputs(case).items()}
+    with torch.no_grad():
+        want, _ = backbone.forward(model_run.seeded_model(case, "cuda"), cfg, inputs,
+                                   use_flash=use_flash)
+    np.testing.assert_allclose(row["logits_all"], want.float().cpu().numpy(), atol=1e-4, rtol=0)
+    launches = cfg.n_layers // cfg.shared_attn_every if use_flash is None else 0
+    assert all(rank["flash_launches"] == launches for rank in row["ranks"])
 
 
 # tests/test_flash_attention.py SWEEP: b, sq, sk, h, kvh, d, causal; plus ragged

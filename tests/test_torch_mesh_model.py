@@ -228,25 +228,6 @@ class FakeMesh:
     shape = (2, 4)
 
 
-@pytest.mark.parametrize("step", ["forward", "decode"])
-@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-1.2b", "internvl2-1b", "whisper-small"])
-def test_families_not_ported_to_the_mesh_raise_under_one(arch, step):
-    from repro_torch.dist.sharding import use_mesh
-    from repro_torch.models import backbone
-
-    cfg = get_smoke(arch)
-    model = backbone.Backbone(cfg, device="meta")
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with use_mesh(FakeMesh()), pytest.raises(NotImplementedError, match="item 8.4"):
-        if step == "forward":
-            backbone.forward(model, cfg, {"tokens": tokens})
-        else:
-            state = backbone.init_decode_state(cfg, 1, 8, device="meta")
-            backbone.decode_step(model, cfg, state, tokens[:, :1], 0)
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        backbone.init_decode_state(cfg, 1, 8, device="meta", mesh=FakeMesh())
-
-
 def test_unsharded_model_and_decode_raise_under_a_mesh():
     from repro_torch.dist.sharding import use_mesh
     from repro_torch.models import backbone
