@@ -234,6 +234,7 @@ from repro_torch.train.checkpoint import (  # noqa: E402
     restore_state,
     state_to_bytes,
 )
+from repro_torch.train import checkpoint  # noqa: E402
 from repro_torch.train.fault_tolerance import FaultToleranceManager  # noqa: E402
 
 SEED = 0
@@ -393,17 +394,40 @@ MESH_DECODE_BATCH, MESH_DECODE_PROMPT, MESH_DECODE_NEW, MESH_DECODE_KV = 8, 32, 
 # reductions) and, for the MoE, the balance loss of each rank's own tokens
 MESH_LOSS_RTOL, MESH_NORM_RTOL = 0.01, 0.05
 # phase 15: the ssm, hybrid, vlm and audio families at their published
-# widths and depths in bf16 over phase 13's mesh, in one spawn: (labels of
-# the prefill, train and decode runs, arch).  Prefill under ``tp`` on
+# widths in bf16 over phase 13's mesh, in one spawn: (labels of the
+# prefill, train and decode runs, arch, layers).  Depth cut to make room for
+# phase 16 (published depths until PR 22): xlstm 4 of 12 blocks (3 mLSTM, 1
+# sLSTM), zamba2 12 of 38 Mamba2 layers (two calls of the shared block),
+# internvl2 8 of 24, whisper's decoder 4 of 12 (its encoder whole).  Prefill under ``tp`` on
 # FAMILY_MESH_PREFILL positions a row (internvl2's 256 patches among them;
 # whisper's 1,500 frames and WHISPER_TEXT tokens), training under ``fsdp``
 # on FAMILY_MESH_TRAIN (whisper WHISPER_TEXT), ``remat="full"`` and each
 # config's AdamW state, decode under ``tp`` as 14c.  The sLSTM's time loop
 # runs whole on each rank (wh gathered once a block)
-FAMILY_MESH = [(("15a", "15e", "15i"), "xlstm-125m"), (("15b", "15f", "15j"), "zamba2-1.2b"),
-               (("15c", "15g", "15k"), "internvl2-1b"), (("15d", "15h", "15l"), "whisper-small")]
+FAMILY_MESH = [(("15a", "15e", "15i"), "xlstm-125m", 4), (("15b", "15f", "15j"), "zamba2-1.2b", 12),
+               (("15c", "15g", "15k"), "internvl2-1b", 8),
+               (("15d", "15h", "15l"), "whisper-small", 4)]
 FAMILY_MESH_PREFILL = (2, 2048)
 FAMILY_MESH_TRAIN = (2, 1024)
+# phase 16: the pod axis and the sharded checkpoint, one spawn of 8 gloo
+# ranks as a (pod 2, data 2, model 2) mesh (``multi_pod`` rules: the batch
+# over pod x data).  16a StarCoder2-3B at full width, 4 of 30 layers (as 14a
+# and 14c): prefill under ``tp`` on 4 x 2048, a warm-up and a timed ``fsdp``
+# train step on 4 x 1024, remat, held to one process's at 2% of the largest
+# logit, loss 0.5%, norm 2%.  16b the same at 2 layers (rank 0 gathers the
+# 4.9 GB state beside the ranks' blocks and codes it), two steps, then
+# DRC(9,6,3) save, node 2 lost, load into the layout through the layered
+# repair, one step resumed against the uninterrupted one
+POD_ARCH, POD_MESH, POD_LAYERS, POD_CKPT_LAYERS = "starcoder2-3b", (2, 2, 2), 4, 2
+POD_PREFILL, POD_TRAIN = (4, 2048), (4, 1024)
+POD_LOGIT_RTOL, POD_LOSS_RTOL, POD_NORM_RTOL = 0.02, 0.005, 0.02
+# 16c: the dry run on the production meshes (fake tensors on a fake group of
+# 256 or 512 ranks: counts, nothing launched) and the roofline probe of a
+# train cell on the multi-pod mesh; the reference's band of the useful FLOP
+# share is printed beside the probe's
+DRYRUN_CELLS = [("starcoder2-3b", "prefill_32k", False), ("starcoder2-3b", "prefill_32k", True)]
+PROBE_CELL = ("starcoder2-3b", "train_4k", True)
+REFERENCE_USEFUL_BAND = (0.8, 1.3)  # tests/test_artifacts.py::test_train_cells_probe_validated
 
 
 def check(cond: bool, what: str) -> None:
@@ -636,15 +660,9 @@ def make_state(gen: torch.Generator) -> dict:
     return state
 
 
-def _leaves(state: dict) -> list[torch.Tensor]:
-    if isinstance(state, torch.Tensor):
-        return [state]
-    return [leaf for key in sorted(state) for leaf in _leaves(state[key])]
-
-
 def phase_checkpoint(gen: torch.Generator) -> dict:
     state = make_state(gen)
-    nbytes = sum(t.numel() * t.element_size() for t in _leaves(state))
+    nbytes = sum(t.numel() * t.element_size() for t in checkpoint.tensors(state))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         mgr = CheckpointManager(d, family="DRC", n=9, k=6, r=3, device=DEVICE)
@@ -654,7 +672,7 @@ def phase_checkpoint(gen: torch.Generator) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     check(step == 1 and report.mode == "repair", f"checkpoint load: step {step}, {report}")
-    for a, b in zip(_leaves(got), _leaves(state)):
+    for a, b in zip(checkpoint.tensors(got), checkpoint.tensors(state)):
         check(a.dtype == b.dtype and a.shape == b.shape, "checkpoint leaf shape/dtype")
         check(torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)),
               "checkpoint state is not bit-equal")
@@ -738,7 +756,7 @@ def phase_evaluation(gen: torch.Generator) -> dict:
     def state_equal(got: dict) -> bool:
         return all(a.dtype == b.dtype and a.shape == b.shape and torch.equal(
             a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
-            for a, b in zip(_leaves(got), _leaves(state)))
+            for a, b in zip(checkpoint.tensors(got), checkpoint.tensors(state)))
 
     for lost in ([1], [0, 4, 8]):
         got, report, action = mgr.execute(ckpt, state, lost)
@@ -1462,7 +1480,7 @@ def phase_state_checkpoint(state: dict) -> dict:
     plan_cross = make_code("DRC", 9, 6, 3).repair_plan(0).traffic_blocks()["cross_rack_blocks"]
     check(report.mode == "repair" and report.cross_rack_blocks == plan_cross,
           f"11g: restore {report}, the plan's cross-rack blocks {plan_cross}")
-    want, got_leaves = _leaves(state), _leaves(got)
+    want, got_leaves = checkpoint.tensors(state), checkpoint.tensors(got)
     check(len(want) == len(got_leaves) and all(
         a.dtype == b.dtype and a.shape == b.shape
         and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
@@ -1609,9 +1627,9 @@ def family_mesh_cases() -> list[tuple[str, str, model_run.Case]]:
     under ``tp`` follow each other, so the ranks build its model once for
     both, then its train run builds its own."""
     out = []
-    for (pre, train, dec), arch in FAMILY_MESH:
+    for (pre, train, dec), arch, layers in FAMILY_MESH:
         cfg = get_config(arch)
-        base = dict(arch=arch, mesh=SHARDED_MESH, seed=SEED)
+        base = dict(arch=arch, mesh=SHARDED_MESH, seed=SEED, layers=layers)
         text = WHISPER_TEXT if cfg.family == "audio" else None
         b, s = FAMILY_MESH_PREFILL
         out.append((pre, "parity", model_run.Case(**base, mode="tp", batch=b, seq=text or s)))
@@ -1665,6 +1683,7 @@ def mesh_reference(case: model_run.Case) -> dict:
 def _mesh_row(ranks: list[dict]) -> dict:
     """What 14 prints of one timed run on every rank."""
     return {"gloo_host_staged_ms_slowest_rank": max(r["ms"] for r in ranks),
+            "collective_bytes_by_axis_rank0": ranks[0]["collective_bytes_by_axis"],
             "ms_by_rank": [r["ms"] for r in ranks],
             "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
             "host_staged_bytes_by_rank": [r["host_staged_bytes"] for r in ranks],
@@ -1738,6 +1757,8 @@ def phase_mesh_runs(smi: str, phase: str, cases: list) -> tuple[dict, int]:
                              "loss_by_rank": [r["loss"] for r in at], **_mesh_row(at)}
                             for at in ([r["steps"][n] for r in ranks] for n in range(case.steps))]
             res["loss_change"] = res["steps"][-1]["loss"] - res["steps"][0]["loss"]
+            if case.checkpoint:
+                res["checkpoint_by_rank"] = [r["checkpoint"] for r in ranks]
             if ref is not None:
                 res.update(loss_one_process=ref["loss"], grad_norm_one_process=ref["grad_norm"],
                            moe_aux_one_process=ref["moe_aux"],
@@ -1763,7 +1784,7 @@ def phase_mesh_runs(smi: str, phase: str, cases: list) -> tuple[dict, int]:
             want = 0
             if case.kind == "decode" and cfg.family == "audio":  # the encoder, then the
                 steps = case.seq + case.new                      # cross-attention a step
-                want = SHARDED_MESH[0] * SHARDED_MESH[1] * (cfg.encoder_layers
+                want = math.prod(case.mesh) * (cfg.encoder_layers
                                                             + cfg.n_layers * steps)
             check(row["flash_launches"] == want, f"{label} {role}: {row['flash_launches']} "
                   f"flash launches over the ranks, want {want}")
@@ -1826,6 +1847,118 @@ def check_mesh_train(label: str, role: str, cfg, res: dict, ref: dict | None) ->
                   f"{label}: a drop-free run dropped pairs")
     if cfg.moe is None:
         check(res["loss_change"] < 0, f"{label}: the loss did not fall: {res['steps']}")
+
+
+def pod_cases() -> list[tuple[str, str, model_run.Case]]:
+    """16a's prefill and train runs and 16b's checkpointed train run."""
+    base = dict(arch=POD_ARCH, mesh=POD_MESH, seed=SEED)
+    b, s = POD_PREFILL
+    out = [("16a", "parity", model_run.Case(**base, mode="tp", layers=POD_LAYERS, batch=b,
+                                            seq=s))]
+    b, s = POD_TRAIN
+    train = dict(base, kind="train", mode="fsdp", batch=b, seq=s, remat="full",
+                 steps=MESH_TRAIN_STEPS)
+    out.append(("16a-train", "parity", model_run.Case(**train, layers=POD_LAYERS)))
+    out.append(("16b", "config", model_run.Case(**train, layers=POD_CKPT_LAYERS,
+                                                 checkpoint=True)))
+    return out
+
+
+def phase_pod(smi: str) -> tuple[dict, int, int]:
+    """16a and 16b: ``phase_mesh_runs`` of ``pod_cases`` (its checks at
+    phase 14's tolerances), then 16a held tighter (rank 0's logits within
+    ``POD_LOGIT_RTOL`` of the largest of one process's, the first step's
+    loss within ``POD_LOSS_RTOL`` and norm within ``POD_NORM_RTOL``, flash
+    launches on every rank, bytes moved over the pod axis's group), and
+    16b: every rank's restored blocks bit-equal to its saved ones, the same
+    report on every rank (node 2 repaired), the payloads' CRCs equal to a
+    one-process encode of the gathered state, the resumed step's loss equal
+    to the uninterrupted step's, GF launches.  Returns the results, the
+    flash launches over the ranks and the GF launches."""
+    out, flash = phase_mesh_runs(smi, "16", pod_cases())
+    pre, tr = out["16a parity"], out["16a-train parity"]
+    check(pre["max_abs_err_vs_one_process"] <= POD_LOGIT_RTOL * pre["largest_logit"],
+          f"16a: rank 0's logits are {pre['max_abs_err_vs_one_process']} from one process's "
+          f"(largest {pre['largest_logit']})")
+    check(all(n > 0 for n in pre["flash_launches_by_rank"]),
+          f"16a: flash launches by rank {pre['flash_launches_by_rank']}")
+    first = tr["steps"][0]
+    check(abs(first["loss"] - tr["loss_one_process"]) <= POD_LOSS_RTOL * tr["loss_one_process"],
+          f"16a: loss {first['loss']} against one process's {tr['loss_one_process']}")
+    check(abs(first["grad_norm"] - tr["grad_norm_one_process"])
+          <= POD_NORM_RTOL * tr["grad_norm_one_process"],
+          f"16a: norm {first['grad_norm']} against one process's {tr['grad_norm_one_process']}")
+    pod_bytes = first["collective_bytes_by_axis_rank0"].get("pod", 0)
+    check(pod_bytes > 0, f"16a: no bytes over the pod axis: {first}")
+    ck = out["16b config"]["checkpoint_by_rank"]
+    root = ck[0]
+    gf = sum(r["gf_launches"] for r in ck)
+    check(all(r["restored_equal"] for r in ck), "16b: a rank's restored blocks differ")
+    check(len({(r["mode"], tuple(r["repaired_nodes"]), r["cross_rack_blocks"]) for r in ck}) == 1
+          and root["mode"] == "repair" and root["repaired_nodes"] == [2],
+          f"16b: reports {[(r['mode'], r['repaired_nodes']) for r in ck]}")
+    check(root["crcs"] == root["crcs_one_process"],
+          "16b: the sharded save's CRCs differ from a one-process save's")
+    check(all(r["resumed"]["loss"] == r["uninterrupted"]["loss"] for r in ck),
+          f"16b: resumed {root['resumed']} against uninterrupted {root['uninterrupted']}")
+    check(gf > 0, "16b: the checkpoint launched the GF kernel no time")
+    summary = {"pod_bytes_rank0_train_step": pod_bytes,
+               "save_s": root["save_s"], "load_s": root["load_s"], "gf_ms": root["gf_ms"],
+               "gf_launches": gf, "mode": root["mode"],
+               "cross_rack_blocks": root["cross_rack_blocks"],
+               "resumed": root["resumed"], "uninterrupted": root["uninterrupted"]}
+    print(f"[16b checkpoint] {smi}, 8 gloo ranks on one card, host clock: "
+          f"{json.dumps(summary)}")
+    out["16b summary"] = summary
+    return out, flash, gf
+
+
+def phase_dryrun(smi: str) -> dict:
+    """16c: ``dryrun.run_cell`` of each ``DRYRUN_CELLS`` cell and the
+    roofline probe of ``PROBE_CELL``, fake card tensors on a fake group in
+    this process (nothing is allocated or launched), the process group torn
+    down after.  Checks: every cell ``ok``, the multi-pod peak no more than
+    the single-pod one, the flash kernel's custom op counted in the prefill
+    (its FLOP formula), the probe's useful FLOP share finite and positive
+    (printed beside the reference's band)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun, roofline_probe
+
+    out = {}
+    try:
+        for arch, shape, multi in DRYRUN_CELLS:
+            t = time.perf_counter()
+            res = dryrun.run_cell(arch, shape, multi_pod=multi, rules_mode="tp",
+                                  device=DEVICE, verbose=False)
+            res["host_s"] = time.perf_counter() - t
+            out[f"{shape} {res['mesh']}"] = res
+            shown = {k: res.get(k) for k in ("arch", "shape", "mesh", "rules", "status",
+                                              "n_devices", "memory", "roofline", "flops_by_op",
+                                              "collectives", "host_s")}
+            print(f"[16c dryrun] host {smi}, computed from the H100 data sheet's rates, not "
+                  f"measured: {json.dumps(shown)}")
+            check(res["status"] == "ok", f"16c: {arch} {shape} {res['mesh']}: {res['status']}")
+            check(res["flops_by_op"].get("repro_torch.flash_attention", 0) > 0,
+                  f"16c: the flash op was not counted: {res['flops_by_op']}")
+        single, multi = (out[f"{DRYRUN_CELLS[0][1]} {m}"]["memory"]["per_device_total_gib"]
+                         for m in ("single", "multi"))
+        check(multi <= single, f"16c: multi-pod {multi} GiB against single-pod {single}")
+        arch, shape, multi_pod = PROBE_CELL
+        t = time.perf_counter()
+        probe = roofline_probe.probe_cell(arch, shape, multi_pod=multi_pod, device=DEVICE)
+        probe["host_s"] = time.perf_counter() - t
+        ratio = probe["roofline"]["useful_flops_ratio"]
+        lo, hi = REFERENCE_USEFUL_BAND
+        probe["in_reference_band"] = lo <= ratio <= hi
+        out["probe"] = probe
+        print(f"[16c probe] host {smi}, computed from the H100 data sheet's rates, not "
+              f"measured: {json.dumps(probe)}")
+        check(math.isfinite(ratio) and ratio > 0, f"16c: useful FLOP share {ratio}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
 
 
 def phase_demos() -> tuple[dict, int]:
@@ -2073,6 +2206,18 @@ def main() -> int:
     gf_launches_15 = gf_matmul_batched.launches
     phases["mesh families"] = {"host_s": time.perf_counter() - t}
 
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    gf_matmul_batched.launches = 0
+    _, pod_flash, pod_gf = phase_pod(smi)
+    check(pod_flash > 0, "16a launched the flash kernel no time")
+    phases["pod axis and sharded checkpoint"] = {"host_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    flash_before = flash_attention.launches
+    phase_dryrun(smi)
+    check(flash_attention.launches == flash_before, "16c launched the flash kernel")
+    phases["dry run"] = {"host_s": time.perf_counter() - t}
+
     head = k1["timings"][0]  # DRC(9,6,3) full-width parity encode
     kernels = {"kernels": [{
         "name": "gf_matmul",
@@ -2083,7 +2228,7 @@ def main() -> int:
         "launches_by_phase": {"2-5": launches, "7": mesh_launches, "8": eval_launches,
                               "9": train_launches, "11g": ck11["gf_launches"],
                               "12": demo_launches, "14": gf_launches_14,
-                              "15": gf_launches_15},
+                              "15": gf_launches_15, "16b (8 ranks)": pod_gf},
         "max_abs_err": kc.max_abs_err,
         "mismatched_bytes": kc.mismatched,
         "ms": head["ms"],
@@ -2103,14 +2248,15 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:28",
         "launches": (flash_launches + sum(family_launches.values()) + sharded_launches
-                     + mesh_launches_14 + mesh_launches_15),
+                     + mesh_launches_14 + mesh_launches_15 + pod_flash),
         "launches_by_phase": {"6b-6c": flash_launches, "9": train_flash_launches,
                               **{f"{label} {arch}": family_launches[label]
                                  for label, arch, _ in FAMILIES},
                               "11": sum(family_train.values()),
                               "13 (8 ranks)": sharded_launches,
                               "14 (8 ranks)": mesh_launches_14,
-                              "15 (8 ranks)": mesh_launches_15},
+                              "15 (8 ranks)": mesh_launches_15,
+                              "16a (8 ranks)": pod_flash, "16c (fake tensors)": 0},
         "max_abs_err": fl["max_abs_err"],
         "rel_fro_err": fl["rel_fro_err"],
         "max_err_over_scale": fl["max_err_over_scale"],

@@ -1,7 +1,10 @@
 """Run the sharded model, prefill, train or decode, in one local process per
 mesh device.
 
-One process per device of a ``(data, model)`` mesh, all on this host, over a
+One process per device of a ``(data, model)`` or ``(pod, data, model)`` mesh
+(``Case.mesh`` of two or three sizes: the pod axis is the reference's
+``multi_pod`` mesh, with the batch sharded over ``("pod", "data")`` by
+``make_rules(mode, multi_pod=True)``), all on this host, over a
 ``gloo`` process group that meets through a file (``dist.spawn.spawn_ranks``:
 no port is chosen, so concurrent runs do not collide).  Tensors live on
 ``device``, the card unless the caller asks for the CPU; every rank of a card
@@ -33,7 +36,9 @@ Each rank, for each case in turn:
   - ``train``: ``steps`` steps of ``make_train_step(cfg, train_config(case),
     mesh=, rules=)`` on one batch (:func:`case_batch`), numbered from
     ``TRAIN_WARMUP``, each timed on its own; with ``save_state`` the updated
-    parameters and moments, gathered;
+    parameters and moments, gathered; with ``checkpoint`` the sharded state
+    then goes through a ``CheckpointManager`` (DRC(9,6,3)) and back
+    (:func:`_checkpoint_round_trip`);
   - ``decode``: a ``ServeEngine`` over the mesh fed the case's ``seq``-token
     prompts one step at a time (the audio family's frames through its
     encoder first), then ``new`` greedy tokens; with
@@ -45,7 +50,8 @@ decode's at the last prompt position), ``case<i>_all.npy`` (every position's,
 or every decode step's) and ``case<i>_state.npz`` (a train case's
 ``params.<name>``, ``m.<name>``, ``v.<name>``).  :func:`run` returns per
 case the arrays and per rank: the collectives by kind (every redistribution
-included; a train step's backward apart), those run through
+included; a train step's backward apart) and the bytes they were given by
+mesh axis (``collective_bytes_by_axis``), those run through
 ``mesh_collectives`` (``moe_collectives``: the MoE layer's own, and in
 training also the cross-entropy's and the global norm's, by phase), the
 (token, choice) pairs routed and dropped, the flash kernel's launches, the
@@ -59,9 +65,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
+import math
 import os
 import time
 import warnings
+import zlib
 from typing import Any
 
 import numpy as np
@@ -72,9 +81,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch import obs
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.dist.mesh_collectives import host_staging, in_backward
-from repro_torch.dist.sharding import axis_rules, make_rules, use_mesh
+from repro_torch.dist.sharding import Rules, axis_rules, is_dtensor, make_rules, use_mesh
 from repro_torch.dist.spawn import spawn_ranks
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.gf_matmul import gf_matmul_batched
 from repro_torch.launch.mesh import make_model_mesh
 from repro_torch.models import attention, backbone
 from repro_torch.models.config import ArchConfig
@@ -83,7 +93,8 @@ from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.serve_step import make_prefill_step
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.schedule import ScheduleConfig
-from repro_torch.train.train_step import TrainConfig, make_train_step
+from repro_torch.train import checkpoint as ckpt_io
+from repro_torch.train.train_step import TrainConfig, make_train_step, train_state
 
 KINDS = ("all_gather", "all_reduce", "reduce_scatter", "all_to_all")
 PHASES = ("forward", "backward")
@@ -94,7 +105,7 @@ class Case:
     arch: str
     kind: str = "prefill"  # "prefill", "train" or "decode"
     mode: str = "tp"  # the sharding rules (dist.sharding.MODES)
-    mesh: tuple[int, int] = (2, 4)  # (data, model)
+    mesh: tuple[int, ...] = (2, 4)  # (data, model), or (pod, data, model)
     batch: int = 2
     seq: int = 4096  # the positions of a row; decode: the prompt's
     layers: int | None = None  # depth cut; None: the config's own
@@ -113,9 +124,22 @@ class Case:
     remat: str | None = None  # None: the config's own
     xent_tile: int = 2048
     save_state: bool = False
+    checkpoint: bool = False  # save, lose node 2, load back, one more step
     # decode
     new: int = 4
     kv_len: int = 64
+
+
+def mesh_axes(case: Case) -> tuple[str, ...]:
+    """The case's mesh axis names: ``("pod", "data", "model")`` for three
+    sizes, else ``("data", "model")``."""
+    return ("pod", "data", "model") if len(case.mesh) == 3 else ("data", "model")
+
+
+def case_rules(case: Case) -> Rules:
+    """The case's sharding rules: ``make_rules(mode)``, ``multi_pod`` on a
+    mesh with a pod axis."""
+    return make_rules(case.mode, multi_pod=len(case.mesh) == 3)
 
 
 def case_config(case: Case) -> ArchConfig:
@@ -245,7 +269,7 @@ def _build(case: Case, mesh: Any, rank: int, world: int, device: str):
             else:
                 with np.load(case.params) as f:
                     full = params_from_arrays(cfg, dict(f), device=device)
-            model = shard_model(full, mesh, make_rules(case.mode))
+            model = shard_model(full, mesh, case_rules(case))
             del full
             _sync(device)
             if device == "cuda":
@@ -276,10 +300,12 @@ class CollectiveCounter(TorchDispatchMode):
     parent's forward call, which the port's functional forward never makes,
     and then fails."""
 
-    def __init__(self) -> None:
+    def __init__(self, axes: dict[str, str] | None = None) -> None:
         super().__init__()
         self.counts: dict[str, int] = {}
         self.backward_counts: dict[str, int] = {}
+        self.axes = dict(axes or {})  # process group name -> mesh axis
+        self.bytes_by_axis: dict[str, int] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -292,7 +318,16 @@ class CollectiveCounter(TorchDispatchMode):
             if kind in KINDS:
                 counts = self.backward_counts if in_backward() else self.counts
                 counts[kind] = counts.get(kind, 0) + 1
+                self._count_bytes(args)
         return out
+
+    def _count_bytes(self, args) -> None:
+        """The bytes of the collective's tensor inputs, under the mesh axis
+        whose group ran it (``other`` for a group of no axis)."""
+        axis = next((self.axes[a] for a in args if isinstance(a, str) and a in self.axes),
+                    "other")
+        nbytes = sum(a.numel() * a.element_size() for a in args if isinstance(a, torch.Tensor))
+        self.bytes_by_axis[axis] = self.bytes_by_axis.get(axis, 0) + nbytes
 
 
 def _measured(run_: dict, device: str) -> dict:
@@ -304,6 +339,7 @@ def _measured(run_: dict, device: str) -> dict:
         "peak_bytes": torch.cuda.max_memory_allocated() if device == "cuda" else None,
         "host_staged_bytes": int(tr.counter_value("mesh.bytes.host_staged")),
         "collectives": comm.counts, "backward_collectives": comm.backward_counts,
+        "collective_bytes_by_axis": comm.bytes_by_axis,
         "moe_collectives": {kind: sum(int(tr.counter_value("mesh.collectives", kind=kind,
                                                              phase=phase)) for phase in PHASES)
                             for kind in KINDS},
@@ -315,17 +351,24 @@ def _measured(run_: dict, device: str) -> dict:
     }
 
 
+def _group_axes(mesh: Any) -> dict[str, str]:
+    """Each mesh axis's process group name -> the axis."""
+    return {mesh.get_group(axis).group_name: axis for axis in mesh.mesh_dim_names}
+
+
 @contextlib.contextmanager
-def _timed(device: str):
+def _timed(device: str, mesh: Any = None):
     """From a barrier to a synchronised end, under ``obs.tracing`` and a
-    :class:`CollectiveCounter`: yields a dict that holds, after the block,
-    the tracer (``tr``), the counter (``comm``) and the time (``ms``)."""
+    :class:`CollectiveCounter` (which tells ``mesh``'s axes apart): yields a
+    dict that holds, after the block, the tracer (``tr``), the counter
+    (``comm``) and the time (``ms``)."""
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     got: dict = {}
     dist.barrier()
     t0 = time.perf_counter()
-    with obs.tracing("model_run") as tr, CollectiveCounter() as comm:
+    axes = _group_axes(mesh) if mesh is not None else None
+    with obs.tracing("model_run") as tr, CollectiveCounter(axes) as comm:
         yield got
         _sync(device)
     got.update(tr=tr, comm=comm, ms=(time.perf_counter() - t0) * 1e3)
@@ -334,12 +377,12 @@ def _timed(device: str):
 def _run_prefill(i: int, case: Case, model, mesh: Any, rank: int, device: str,
                  workdir: str) -> dict:
     cfg = case_config(case)
-    rules = make_rules(case.mode)
+    rules = case_rules(case)
     inputs = {key: torch.from_numpy(val) for key, val in case_inputs(case).items()}
     step = make_prefill_step(cfg, device=device, mesh=mesh, rules=rules,
                              use_flash=case.use_flash)
     launches = flash_attention.launches
-    with attention.record_flash_inputs() as captured, _timed(device) as run_:
+    with attention.record_flash_inputs() as captured, _timed(device, mesh) as run_:
         logits = step(model, inputs)
     launches = flash_attention.launches - launches
     full = logits.full_tensor().float().cpu().numpy()
@@ -392,12 +435,12 @@ def _run_train(i: int, case: Case, model, mesh: Any, rank: int, device: str,
     cfg, tcfg = case_config(case), train_config(case)
     model.requires_grad_(True)
     opt = init_opt_state(model, tcfg.optimizer)
-    step_fn = make_train_step(cfg, tcfg, mesh=mesh, rules=make_rules(case.mode))
+    step_fn = make_train_step(cfg, tcfg, mesh=mesh, rules=case_rules(case))
     batch = {key: torch.from_numpy(val).to(device) for key, val in case_batch(case).items()}
     launches = flash_attention.launches
     steps = []
     for n in range(case.steps):
-        with autograd_fallback_is_an_error(), _timed(device) as run_:
+        with autograd_fallback_is_an_error(), _timed(device, mesh) as run_:
             _, _, metrics = step_fn(model, opt, batch, TRAIN_WARMUP + n)
         steps.append({"step": TRAIN_WARMUP + n,
                       **{key: float(metrics[key])
@@ -409,25 +452,104 @@ def _run_train(i: int, case: Case, model, mesh: Any, rank: int, device: str,
             state.update({f"{key}.{name}": _gathered(t) for name, t in opt[key].items()})
         if rank == 0:
             np.savez(os.path.join(workdir, f"case{i}_state.npz"), **state)
-    return {"rank": rank, "steps": steps, **steps[-1],
-            "flash_launches": flash_attention.launches - launches}
+    row = {"rank": rank, "steps": steps, **(steps[-1] if steps else {}),
+           "flash_launches": flash_attention.launches - launches}
+    if case.checkpoint:
+        row["checkpoint"] = _checkpoint_round_trip(
+            i, model, opt, TRAIN_WARMUP + case.steps,
+            lambda: step_fn(model, opt, batch, TRAIN_WARMUP + case.steps), rank, device, workdir)
+    return row
+
+
+def _local_bits(state: Any) -> list[torch.Tensor]:
+    """Each piece of a state's leaves, this rank's block, as host bytes."""
+    return [(p.to_local() if is_dtensor(p) else p).detach().contiguous().reshape(-1)
+            .view(torch.uint8).cpu().clone() for p in ckpt_io.tensors(state)]
+
+
+def _gf_ms(tr: obs.Tracer) -> float:
+    """The GF products' time under ``tr`` (each kernel.gf_matmul span runs
+    between two device synchronisations)."""
+    return sum(sp.dur_us for sp in tr.spans_named("kernel.gf_matmul")) / 1e3
+
+
+def _checkpoint_round_trip(i: int, model, opt: dict, at_step: int, step, rank: int,
+                           device: str, workdir: str) -> dict:
+    """The sharded train state through a ``CheckpointManager`` (DRC(9,6,3)
+    under ``workdir/ckpt<i>``, rank 0 writing) and back: the save (``save_s``
+    on the host clock), a one-process encode of the state gathered to rank 0
+    (its payloads' CRCs, ``crcs_one_process``, against the save's), one
+    step from the saved state (the uninterrupted step), ``node_2.bin``
+    deleted, the load into the layout through the layered repair
+    (``load_s``), each rank's restored blocks held to the saved ones bit for
+    bit, the state copied back in place, and the same step again (the
+    resumed step).  The GF kernel's launches count the save and the load;
+    ``gf_ms`` is their products' time on rank 0."""
+    mgr = ckpt_io.CheckpointManager(os.path.join(workdir, f"ckpt{i}"), device=device)
+    live = train_state(model, opt)
+    saved = _local_bits(live)
+    gf = gf_matmul_batched.launches
+    dist.barrier()
+    t0 = time.perf_counter()
+    with obs.tracing("checkpoint save") as tr:
+        mgr.save(at_step, live)
+        _sync(device)
+    save_s = time.perf_counter() - t0
+    gf_ms = {"save": _gf_ms(tr)}
+    gf_save = gf_matmul_batched.launches - gf
+    out: dict = {"save_s": save_s}
+    whole = ckpt_io.gather_state(live)
+    if rank == 0:
+        one = ckpt_io.encode_state(whole, device=device)
+        out["crcs_one_process"] = {str(n): zlib.crc32(p.cpu().numpy().tobytes())
+                                   for n, p in one.payloads.items()}
+        del one
+    del whole
+    gf_matmul_batched.launches = gf + gf_save  # the comparison's launches are not counted
+    _, _, metrics = step()
+    out["uninterrupted"] = {key: float(metrics[key]) for key in ("loss", "grad_norm")}
+    stepdir = mgr._stepdir(at_step)
+    if rank == 0:
+        with open(os.path.join(stepdir, "meta.json")) as f:
+            out["crcs"] = json.load(f)["crcs"]
+        os.remove(os.path.join(stepdir, "node_2.bin"))
+    dist.barrier()
+    like = train_state(model, opt)
+    t0 = time.perf_counter()
+    with obs.tracing("checkpoint load") as tr:
+        restored, at, report = mgr.load(like)
+        _sync(device)
+    gf_ms["load"] = _gf_ms(tr)
+    out.update(load_s=time.perf_counter() - t0, gf_ms=gf_ms, step=at, mode=report.mode,
+               repaired_nodes=report.repaired_nodes,
+               cross_rack_blocks=report.cross_rack_blocks,
+               inner_rack_blocks=report.inner_rack_blocks,
+               gf_launches=gf_matmul_batched.launches - gf,
+               restored_equal=all(torch.equal(a, b)
+                                  for a, b in zip(_local_bits(restored), saved)))
+    ckpt_io.copy_state_(like, restored)
+    del restored
+    _, _, metrics = step()
+    out["resumed"] = {key: float(metrics[key]) for key in ("loss", "grad_norm")}
+    out["ckpt_dir"] = mgr.dir
+    return out
 
 
 def _run_decode(i: int, case: Case, model, mesh: Any, rank: int, device: str,
                 workdir: str) -> dict:
     cfg = case_config(case)
     engine = ServeEngine(cfg, model, batch=case.batch, kv_len=case.kv_len, device=device,
-                         mesh=mesh, rules=make_rules(case.mode))
+                         mesh=mesh, rules=case_rules(case))
     inputs = case_inputs(case)
     prompts = torch.from_numpy(inputs["tokens"])
     launches = flash_attention.launches
     every = []
-    with _timed(device) as prefill:
+    with _timed(device, mesh) as prefill:
         if "frames" in inputs:  # the audio decoder reads the encoder's output
             engine.encode(torch.from_numpy(inputs["frames"]))
         for t in range(case.seq):  # one step at a time: every step's logits
             every.append(engine.prefill(prompts[:, t:t + 1]))
-    with _timed(device) as generate:
+    with _timed(device, mesh) as generate:
         tokens = []
         for _ in range(case.new):
             tokens.append(engine.generate(1))
@@ -455,7 +577,8 @@ def _rank_rows(rank: int, world: int, device: str, workdir: str,
         for i, case in enumerate(cases):
             mesh = meshes.get(case.mesh)
             if mesh is None:
-                mesh = meshes[case.mesh] = make_model_mesh(case.mesh, device_type=device)
+                mesh = meshes[case.mesh] = make_model_mesh(case.mesh, mesh_axes(case),
+                                                           device_type=device)
             build_s = 0.0
             if _model_key(case) != key:
                 model = None
@@ -474,7 +597,7 @@ def _rank_rows(rank: int, world: int, device: str, workdir: str,
 def run(cases: list[Case], *, workdir: str, device: str = "cuda") -> list[dict]:
     """Run ``cases`` in one process per mesh device (every case's mesh must
     have the same size) and return one merged result per case."""
-    worlds = {case.mesh[0] * case.mesh[1] for case in cases}
+    worlds = {math.prod(case.mesh) for case in cases}
     if len(worlds) != 1:
         raise ValueError(f"cases of one run need one world size, got {sorted(worlds)}")
     unknown = [case.kind for case in cases if case.kind not in _RUNNERS]
@@ -488,7 +611,7 @@ def run(cases: list[Case], *, workdir: str, device: str = "cuda") -> list[dict]:
         out = {
             "case": dataclasses.asdict(case), "world": world,
             "ranks": rows,
-            "ms": max(row["ms"] for row in rows),
+            "ms": max(row.get("ms", 0.0) for row in rows),
             "flash_launches": sum(row["flash_launches"] for row in rows),
             "aux": rows[0].get("aux"),
         }

@@ -19,7 +19,11 @@ tiles above the causal diagonal are skipped.  See the source for the
 design; the f32 path runs on the CUDA cores.
 
 On a CPU tensor the wrapper runs the plain version, ``flash_attention_ref``;
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches the kernel or raises.  The launch is the custom
+op ``torch.ops.repro_torch.flash_attention``, so that a program traced under
+``FakeTensorMode`` (the dry run) sees it: its fake kernel gives the output's
+shape and dtype, and ``torch.utils.flop_counter`` counts :func:`flops` for
+it.  A fake tensor launches nothing and is not counted in ``launches``.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ import functools
 import math
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build
 from .ref import streaming_attention
@@ -114,9 +120,11 @@ def hopper_config(head_dim: int) -> dict[str, int]:
 
 def rows_aligned(t: torch.Tensor) -> bool:
     """TMA reads a (B, S, heads, D) tensor whose base and byte strides are
-    multiples of 16; the kernel's tensor maps take the strides as they are."""
-    return t.data_ptr() % 16 == 0 and all(
-        s * t.element_size() % 16 == 0 for s in t.stride()[:3])
+    multiples of 16; the kernel's tensor maps take the strides as they are.
+    A fake tensor has no address: its base is its storage offset (storages
+    are allocated aligned)."""
+    base = t.storage_offset() * t.element_size() if is_fake(t) else t.data_ptr()
+    return base % 16 == 0 and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3])
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -158,6 +166,32 @@ def launch(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) 
     return out
 
 
+def flops(b: int, sq: int, sk: int, h: int, d: int, causal: bool) -> int:
+    """4·d FLOP per (row, visible column) pair: QK^T and PV, 2·d each; a
+    causal row i sees columns 0..min(i, sk - 1)."""
+    if not causal:
+        return 4 * b * h * d * sq * sk
+    m = min(sq, sk)
+    return 4 * b * h * d * (m * (m + 1) // 2 + (sq - m) * sk)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    return launch(_launch_fn(), q, k, v, causal)
+
+
+@_flash_op.register_fake
+def _flash_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> torch.Tensor:
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flop_formula(q_shape, k_shape, v_shape, causal, *_, **__) -> int:
+    b, sq, h, d = q_shape
+    return flops(b, sq, k_shape[1], h, d, causal)
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
 ) -> torch.Tensor:
@@ -185,8 +219,9 @@ def flash_attention(
         return q.new_empty(q.shape)
     if k.shape[1] == 0:
         return q.new_zeros(q.shape)
-    out = launch(_launch_fn(), q, k, v, causal)
-    flash_attention.launches += 1
+    out = torch.ops.repro_torch.flash_attention(q, k, v, causal)
+    if not is_fake(q):
+        flash_attention.launches += 1
     return out
 
 

@@ -6,6 +6,15 @@
   ``Placement.rack_of`` has it.
 * ``make_model_mesh``: the model's ``(data, model)`` mesh (or any named
   axes) over the whole world, for the sharded forward.
+* ``make_production_mesh``, the counterpart of
+  ``repro.launch.mesh.make_production_mesh``: the reference's production
+  shapes, ``(16, 16)`` ``("data", "model")`` or, with ``multi_pod``, ``(2,
+  16, 16)`` ``("pod", "data", "model")`` (the pod axis is the paper's rack),
+  over a process group of that size (the dry run's ``fake`` one).
+
+The roofline constants below are an H100 SXM 80 GB's data sheet values, not
+measurements: the dry run's compute, memory and collective terms divide its
+counts by them.
 
 Built by functions, never at import, so importing this module touches no
 process group.
@@ -51,3 +60,22 @@ def make_model_mesh(shape: tuple[int, ...], axes: tuple[str, ...] = ("data", "mo
     if world != size:
         raise ValueError(f"a {shape} mesh needs {size} ranks, the world has {world}")
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") -> DeviceMesh:
+    """The production mesh: 256 devices as ``(16, 16)`` ``("data",
+    "model")``, or 512 as ``(2, 16, 16)`` ``("pod", "data", "model")``, over
+    the default process group, which must have that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_model_mesh(shape, axes, device_type=device_type)
+
+
+# H100 SXM 80 GB, data sheet values (not measured), for the roofline terms:
+PEAK_FLOPS_BF16 = 989e12  # dense bf16 tensor-core FLOP/s per GPU
+HBM_BW = 3.35e12  # HBM3 bytes/s per GPU
+HBM_BYTES = 80e9  # device memory per GPU: the budget a cell must fit
+# The collective rate: one 400 Gb/s NDR InfiniBand port per GPU (50e9 B/s),
+# since a 16-wide axis spans two 8-GPU NVLink nodes and so crosses the
+# network; NVLink (900 GB/s) serves only groups within a node.
+COLLECTIVE_BW = 50e9

@@ -1,8 +1,10 @@
 """Training launcher.
 
 Runs real steps on one device (an H100 by default, the CPU with ``--device
-cpu``), the counterpart of ``repro.launch.train`` without its ``--dryrun``:
-erasure-coded checkpoints every ``--ckpt-every`` steps through
+cpu``), the counterpart of ``repro.launch.train``, or, with ``--dryrun``,
+defers to ``launch.dryrun.run_cell`` for the production mesh (``--shape``,
+``--mesh single|multi``, ``--rules``, by default the orchestrator's rules of
+the cell; ``--out`` a directory for the artifact).  Erasure-coded checkpoints every ``--ckpt-every`` steps through
 ``CheckpointManager`` (encode and repair through the GF kernel on a CUDA
 device), ``--resume`` from the newest checkpoint (restored through the
 layered repair when a shard is lost, and copied into the live parameters and
@@ -17,12 +19,15 @@ last is no higher than the first (``training_ok``).
 from __future__ import annotations
 
 import argparse
+import json
 import math
+import os
 import time
 
 import torch
 
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.models.config import SHAPES
 from repro_torch.train import (
     AdamWConfig,
     DataConfig,
@@ -59,7 +64,15 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="dry-run one cell of the production mesh (launch.dryrun)")
+    ap.add_argument("--shape", default="train_4k", choices=list(SHAPES))
+    ap.add_argument("--mesh", default="single", choices=["single", "multi"])
+    ap.add_argument("--rules", default=None)
+    ap.add_argument("--out", default=None, help="--dryrun: directory for the JSON artifact")
     args = ap.parse_args(argv)
+    if args.dryrun:
+        return dryrun_main(args)
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     tcfg = TrainConfig(
@@ -115,6 +128,22 @@ def main(argv=None) -> int:
     print(f"[train] done: first={losses[0]:.4f} last={losses[-1]:.4f} "
           f"{'(improved)' if losses[-1] < losses[0] else ''}")
     return 0 if training_ok(losses) else 1
+
+
+def dryrun_main(args) -> int:
+    """``--dryrun``: ``launch.dryrun.run_cell`` of ``--arch`` x ``--shape`` on
+    the production mesh; 0 when the cell is ok or skipped."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.orchestrate_dryrun import cell_rules
+
+    res = dryrun.run_cell(args.arch, args.shape, multi_pod=args.mesh == "multi",
+                          rules_mode=args.rules or cell_rules(args.arch, args.shape),
+                          microbatches=args.microbatches, device=args.device)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, dryrun.artifact_name(res)), "w") as f:
+            json.dump(res, f, indent=1)
+    return 0 if res.get("status") in ("ok", "skipped") else 1
 
 
 if __name__ == "__main__":

@@ -152,11 +152,13 @@ def _kv_read(cfg: ArchConfig, h0: int, hl: int, kv0: int, k, v):
     kv, hd) holding kv heads kv0 on: query head h reads kv head ``h // (H //
     kvH)``.  The heads read, as a slice, where the query heads group evenly
     over them; else one kv head per query head."""
-    kv_of = torch.arange(h0, h0 + hl) // (cfg.n_heads // cfg.n_kv_heads) - kv0
-    lo, hi = int(kv_of[0]), int(kv_of[-1]) + 1
+    group = cfg.n_heads // cfg.n_kv_heads
+    kv_of = [(h0 + i) // group - kv0 for i in range(hl)]  # host ints: no tensor is read
+    lo, hi = kv_of[0], kv_of[-1] + 1
     k, v = k[:, :, lo:hi], v[:, :, lo:hi]
-    if hl % (hi - lo) or not torch.equal(kv_of - lo, torch.arange(hl) // (hl // (hi - lo))):
-        k, v = k[:, :, kv_of - lo], v[:, :, kv_of - lo]
+    if hl % (hi - lo) or any(kv - lo != i // (hl // (hi - lo)) for i, kv in enumerate(kv_of)):
+        index = torch.tensor([kv - lo for kv in kv_of], device=k.device)
+        k, v = k[:, :, index], v[:, :, index]
     return k, v
 
 

@@ -188,6 +188,7 @@ class Backbone(nn.Module):
 
     def __init__(self, cfg: ArchConfig, *, device="cuda") -> None:
         super().__init__()
+        self.cfg = cfg
         dtype = DTYPES[cfg.param_dtype]
         kw = dict(dtype=dtype, device=device)
         self.embed = Embedding(cfg.padded_vocab, cfg.d_model, **kw)

@@ -11,6 +11,13 @@ same values, for every family.  The reference stacks the layers of
 uint16 and reinterpreted as ``torch.bfloat16``: the bits are copied as they
 are, with no f32 round trip.  Only numpy is read here.
 
+``reference_tree(cfg, named)`` is the inverse of ``named_arrays``: the port's
+per-layer tensors under the reference's tree, each ``{stack}.{i}.*`` family
+one :class:`Stack` leaf, which reads as the reference's ``(L, ...)`` leaf but
+holds the layers as they are (no copy is made until a caller stacks them).
+Checkpoints serialize the training state in that tree, so both packages
+write the same bytes.
+
 ``param_axes(model)`` gives each parameter's logical axes, the reference's
 ``init_model`` axes tree under the same name map; ``shard_model(model,
 mesh)`` lays every parameter out over a ``DeviceMesh`` as those axes resolve
@@ -65,6 +72,87 @@ def named_arrays(cfg: ArchConfig, np_tree: dict) -> dict:
     return out
 
 
+class Stack:
+    """The layers of one stacked leaf of the reference's tree, in order: its
+    ``shape`` and ``dtype`` are the ``(L, ...)`` leaf's, ``stack[i]`` is layer
+    i, and :meth:`stacked` makes the one ``(L, ...)`` copy."""
+
+    def __init__(self, layers) -> None:
+        self.layers = list(layers)
+        if not self.layers:
+            raise ValueError("a stack needs at least one layer")
+        first = self.layers[0]
+        for i, layer in enumerate(self.layers):
+            if tuple(layer.shape) != tuple(first.shape) or layer.dtype != first.dtype:
+                raise ValueError(f"layer {i} is {layer.dtype} {tuple(layer.shape)}, "
+                                 f"layer 0 {first.dtype} {tuple(first.shape)}")
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return (len(self.layers), *self.layers[0].shape)
+
+    @property
+    def dtype(self):
+        return self.layers[0].dtype
+
+    def __getitem__(self, i: int):
+        return self.layers[i]
+
+    def stacked(self):
+        first = self.layers[0]
+        if isinstance(first, torch.Tensor):
+            return torch.stack(self.layers)
+        return np.stack(self.layers)
+
+
+def _is_stacked(cfg: ArchConfig, stack: str) -> bool:
+    """Whether the reference stacks ``stack``'s layers on a leading axis: the
+    decoder ``blocks`` of the dense, MoE and vlm families under
+    ``scan_layers`` and always of the audio family, ``mamba_main``,
+    ``mamba_rem`` and the audio ``encoder``; xlstm's ``blocks`` is a list."""
+    if stack == "blocks":
+        return cfg.family == "audio" or (cfg.family in ("dense", "moe", "vlm")
+                                         and cfg.scan_layers)
+    return stack in STACKED
+
+
+def _listify(node):
+    """Dicts whose keys are all layer indices become lists, in index order."""
+    if not isinstance(node, dict):
+        return node
+    node = {key: _listify(sub) for key, sub in node.items()}
+    if node and all(key.isdigit() for key in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def reference_tree(cfg: ArchConfig, named: dict) -> dict:
+    """``named`` (port parameter name -> leaf) under the reference's tree: the
+    inverse of :func:`named_arrays`.  Each family ``{stack}.{i}.{rest}`` of a
+    stacked layer stack becomes one :class:`Stack` at ``{stack}.{rest}``; a
+    list stack (xlstm's ``blocks``) stays a list."""
+    tree: dict = {}
+    stacks: dict[tuple[str, str], dict[int, object]] = {}
+    for name, leaf in named.items():
+        stack, _, tail = name.partition(".")
+        index, _, rest = tail.partition(".")
+        if _is_stacked(cfg, stack) and index.isdigit():
+            stacks.setdefault((stack, rest), {})[int(index)] = leaf
+            continue
+        node = tree
+        *parents, last = name.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    for (stack, rest), layers in stacks.items():
+        node = tree.setdefault(stack, {})
+        *parents, last = rest.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = Stack(layers[i] for i in range(len(layers)))
+    return _listify(tree)
+
+
 def params_from_jax(cfg: ArchConfig, np_tree: dict, *, device="cuda") -> Backbone:
     """A ``Backbone`` on ``device`` whose parameters equal ``np_tree``'s."""
     return params_from_arrays(cfg, named_arrays(cfg, np_tree), device=device)
@@ -101,6 +189,14 @@ def opt_state_from_jax(cfg: ArchConfig, np_opt_state: dict, *, device="cuda") ->
                     for name, leaf in named_arrays(cfg, np_opt_state[key]).items()}
     out["count"] = torch.from_numpy(np.array(np_opt_state["count"], dtype=np.int32)).to(device)
     return out
+
+
+def opt_state_tree(cfg: ArchConfig, opt_state: dict) -> dict:
+    """The port's AdamW state under the reference's tree (the inverse of
+    :func:`opt_state_from_jax`): ``m`` and ``v`` through
+    :func:`reference_tree`, ``count`` as it is."""
+    return {"m": reference_tree(cfg, opt_state["m"]), "v": reference_tree(cfg, opt_state["v"]),
+            "count": opt_state["count"]}
 
 
 def param_axes(model: torch.nn.Module) -> dict[str, AxisSpec]:

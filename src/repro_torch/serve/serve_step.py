@@ -1,7 +1,8 @@
 """Serving steps.
 
 * ``prefill_step`` — full-sequence forward over the prompt (through the
-  flash kernel on a CUDA device): returns next-token logits.
+  flash kernel on a CUDA device): returns next-token logits, the lm head
+  run on the last position only.
 * ``serve_step`` — one new token against the decode state of
   ``backbone.init_decode_state`` (KV caches, SSM states), which it updates.
 
@@ -52,7 +53,11 @@ def make_prefill_step(cfg: ArchConfig, chunk: int = 512, *, device="cuda",
                 scope.enter_context(axis_rules(rules))
                 if not is_dtensor(model.embed.w):
                     shard_model(model, mesh)
-            logits, _ = backbone.forward(model, cfg, batch, chunk=chunk, use_flash=use_flash)
+            x, _ = backbone.forward_hidden(model, cfg, batch, chunk=chunk,
+                                           use_flash=use_flash)
+            # the lm head on the last position alone: every position's logits
+            # would be (B, S, vocab), 193 GiB a GPU at prefill_32k on 16 x 16
+            logits = backbone._logits(model, cfg, x[:, -1:, :])
         return logits[:, -1, :]
 
     return prefill_step

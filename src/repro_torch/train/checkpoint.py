@@ -15,7 +15,18 @@ payloads placed on n failure domains grouped into r *racks*.  On restore:
 Payloads carry CRC32s so silent corruption degrades to the repair path.
 The serialized bytes, the padding of ``sub``, the on-disk layout and the
 CRCs are those of ``repro.train.checkpoint``, so each package restores the
-other's checkpoints (see also :func:`checkpoint_from_arrays`).
+other's checkpoints (see also :func:`checkpoint_from_arrays`).  A training
+state (``train_step.train_state``) is the reference's tree, each layer
+stack a ``weights.Stack`` whose ``(L, ...)`` bytes are its layers' one
+after another: the encode writes each piece straight into the stripe, and
+nothing is stacked.
+
+A state whose leaves are DTensors is the counterpart of the reference's
+sharded ``jax.Array``s: every rank of its mesh calls ``save`` and ``load``.
+Rank 0 gathers one leaf at a time (``dist.root_io``; the reference's
+``np.asarray``), encodes and writes; on load it restores (repairs or
+decodes) once and sends each rank its blocks of each leaf (the reference's
+``device_put`` with the state's shardings).
 """
 from __future__ import annotations
 
@@ -27,20 +38,24 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.core.code_base import ErasureCode
 from repro_torch.core.codes import make_code
+from repro_torch.dist.root_io import gather_to_root, scatter_from_root
+from repro_torch.dist.sharding import is_dtensor
 from repro_torch.kernels import ops
+from repro_torch.models.weights import Stack
 
 Device = str | torch.device
 
 
 # ------------------------------------------------------------- serialization
-def _flatten(state: Any) -> list[torch.Tensor]:
+def _flatten(state: Any) -> list:
     """Leaves in ``jax.tree.flatten`` order: dict keys sorted, recursively;
-    lists and tuples in order."""
-    if isinstance(state, torch.Tensor):
+    lists and tuples in order.  A ``weights.Stack`` is one leaf."""
+    if isinstance(state, (torch.Tensor, Stack)):
         return [state]
     if isinstance(state, dict):
         return [leaf for key in sorted(state) for leaf in _flatten(state[key])]
@@ -49,10 +64,13 @@ def _flatten(state: Any) -> list[torch.Tensor]:
     raise TypeError(f"checkpoint leaves must be tensors, got {type(state).__name__}")
 
 
-def _unflatten(like: Any, leaves: list[torch.Tensor]) -> Any:
+def _unflatten(like: Any, leaves: list) -> Any:
     it = iter(leaves)
 
     def build(node: Any) -> Any:
+        if isinstance(node, Stack):
+            leaf = next(it)
+            return leaf if isinstance(leaf, Stack) else Stack(leaf.unbind(0))
         if isinstance(node, torch.Tensor):
             return next(it)
         if isinstance(node, dict):
@@ -65,10 +83,37 @@ def _unflatten(like: Any, leaves: list[torch.Tensor]) -> Any:
     return build(like)
 
 
+def _pieces(leaf: Any) -> list[torch.Tensor]:
+    """The tensors a leaf's bytes come from, in order: a ``Stack``'s layers
+    (its ``(L, ...)`` bytes are theirs one after another), else the leaf."""
+    return leaf.layers if isinstance(leaf, Stack) else [leaf]
+
+
+def tensors(state: Any) -> list[torch.Tensor]:
+    """Every tensor of a state in serialization order, a ``Stack``'s layers
+    one by one."""
+    return [piece for leaf in _flatten(state) for piece in _pieces(leaf)]
+
+
 def _dtype_name(dt: torch.dtype) -> str:
     # torch.float32 -> "float32", torch.bfloat16 -> "bfloat16": the numpy
     # (ml_dtypes) names the reference writes into its meta
     return str(dt).removeprefix("torch.")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()  # a DTensor's global size
+
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def leaf_meta(state: Any) -> list[dict]:
+    """Each leaf's ``{"shape", "dtype"}``, the reference's ``meta`` entries
+    (a ``Stack``'s shape is its ``(L, ...)`` leaf's, a DTensor's global)."""
+    return [{"shape": list(leaf.shape), "dtype": _dtype_name(leaf.dtype)}
+            for leaf in _flatten(state)]
 
 
 def state_to_bytes(state: Any) -> tuple[torch.Tensor, list[dict]]:
@@ -78,18 +123,15 @@ def state_to_bytes(state: Any) -> tuple[torch.Tensor, list[dict]]:
     ``tobytes()`` gives for the same array (bf16 leaves, which have no
     numpy dtype, go through a byte view of their 16-bit storage).
     """
-    meta = []
-    chunks = []
-    for leaf in _flatten(state):
-        meta.append({"shape": list(leaf.shape), "dtype": _dtype_name(leaf.dtype)})
-        chunks.append(leaf.detach().contiguous().reshape(-1).view(torch.uint8))
+    chunks = [_raw(piece) for piece in tensors(state)]
     if not chunks:
-        return torch.zeros(0, dtype=torch.uint8), meta
-    return torch.cat(chunks), meta
+        return torch.zeros(0, dtype=torch.uint8), []
+    return torch.cat(chunks), leaf_meta(state)
 
 
 def bytes_to_state(buf: torch.Tensor, meta: list[dict], like: Any) -> Any:
-    """Inverse of :func:`state_to_bytes`; leaves land on ``buf``'s device."""
+    """Inverse of :func:`state_to_bytes`; leaves land on ``buf``'s device,
+    a ``Stack`` of ``like`` as a ``Stack`` of its layers."""
     leaves = []
     off = 0
     for m in meta:
@@ -107,15 +149,37 @@ def copy_state_(live: Any, restored: Any) -> None:
     """Copy a restored state's leaves into the live state's, in place (a
     training job keeps its parameters and optimizer state objects; the
     restore returns fresh leaves).  The two trees must match leaf for leaf
-    in shape and dtype."""
+    in shape and dtype; a ``Stack`` is copied layer by layer."""
     dst, src = _flatten(live), _flatten(restored)
     if len(dst) != len(src):
         raise ValueError(f"state has {len(dst)} leaves, the restored one {len(src)}")
     for i, (a, b) in enumerate(zip(dst, src)):
-        if a.shape != b.shape or a.dtype != b.dtype:
+        if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
             raise ValueError(f"leaf {i}: live {a.dtype} {tuple(a.shape)}, "
                              f"restored {b.dtype} {tuple(b.shape)}")
-        a.copy_(b)
+        if isinstance(a, Stack):
+            src_layers = b.layers if isinstance(b, Stack) else list(b.unbind(0))
+            for x, y in zip(a.layers, src_layers):
+                x.copy_(y)
+        else:
+            a.copy_(b.stacked() if isinstance(b, Stack) else b)
+
+
+def _sharded(state: Any) -> bool:
+    return any(is_dtensor(piece) for piece in tensors(state))
+
+
+def gather_state(state: Any) -> Any:
+    """A state whose leaves are DTensors, whole on rank 0 (each leaf
+    gathered alone, ``dist.root_io.gather_to_root``; on the host for
+    ``gloo``) and ``None`` on every other rank: the one-process state a
+    sharded save writes."""
+    leaves = []
+    for leaf in _flatten(state):
+        whole = [gather_to_root(piece) for piece in _pieces(leaf)]
+        leaves.append(Stack(whole) if isinstance(leaf, Stack) and whole[0] is not None
+                      else whole[0])
+    return _unflatten(state, leaves) if dist.get_rank() == 0 else None
 
 
 # ------------------------------------------------------------------ encoding
@@ -194,17 +258,38 @@ def make_encode_step(
 def encode_state(
     state: Any, *, family: str = "DRC", n: int = 9, k: int = 6, r: int = 3,
     step: int = 0, device: Device = "cuda",
-) -> EncodedCheckpoint:
-    """Serialize ``state`` and encode it into n payloads on ``device``."""
+) -> EncodedCheckpoint | None:
+    """Serialize ``state`` and encode it into n payloads on ``device``.
+
+    Each leaf's bytes are written straight into the stripe's data rows, one
+    piece at a time (a ``Stack``'s layers in order), so no second copy of
+    the state is made.  A state whose leaves are DTensors is encoded by rank
+    0 alone: every rank of the mesh calls this, each leaf is gathered to
+    rank 0 on its own (``dist.root_io``), and the others get ``None``."""
     code = make_code(family, n, k, r)
+    leaves = _flatten(state)
+    sharded = _sharded(state)
+    mine = not sharded or dist.get_rank() == 0
     with obs.span("ckpt.encode", cat="checkpoint", family=family, n=n, k=k, r=r):
-        buf, meta = state_to_bytes(state)
-        total = int(buf.numel())
+        meta = leaf_meta(state)
+        total = sum(_nbytes(piece) for piece in tensors(state))
         ka = code.k * code.alpha
         sub = (total + ka - 1) // ka
         sub = (sub + 127) // 128 * 128  # byte-identical to the reference's payloads
-        stripe = torch.zeros((code.n * code.alpha, sub), dtype=torch.uint8, device=device)
-        stripe[:ka].view(-1)[:total] = buf.to(device)
+        stripe = flat = None
+        if mine:
+            stripe = torch.zeros((code.n * code.alpha, sub), dtype=torch.uint8, device=device)
+            flat = stripe[:ka].view(-1)
+        off = 0
+        for leaf in leaves:
+            for piece in _pieces(leaf):
+                whole = gather_to_root(piece) if sharded else piece
+                nb = _nbytes(piece)
+                if mine and nb:
+                    flat[off:off + nb].copy_(_raw(whole))
+                off += nb
+        if not mine:
+            return None
         coded = make_encode_step(code, sub, device)(stripe)
         a = code.alpha
         payloads = {i: coded[i * a:(i + 1) * a] for i in range(code.n)}
@@ -226,9 +311,11 @@ class RestoreReport:
     inner_rack_blocks: float = 0.0
 
 
-def restore_state(
-    ckpt: EncodedCheckpoint, like: Any, available: set[int] | None = None
-) -> tuple[Any, RestoreReport]:
+def restore_bytes(
+    ckpt: EncodedCheckpoint, available: set[int] | None = None
+) -> tuple[torch.Tensor, RestoreReport]:
+    """The serialized state (``total_bytes`` uint8 on the payloads' device)
+    from the available payloads: direct, layered repair or MDS decode."""
     code = ckpt.code
     if available is None:
         available = set(ckpt.payloads)
@@ -266,8 +353,33 @@ def restore_state(
             data = code.decode(chosen)
             report = RestoreReport(mode="decode", repaired_nodes=missing)
         obs.counter_add("ckpt.restores", 1, mode=report.mode)
-        buf = data.reshape(-1)[: ckpt.total_bytes]
-        return bytes_to_state(buf, ckpt.meta, like), report
+        return data.reshape(-1)[: ckpt.total_bytes], report
+
+
+def restore_state(
+    ckpt: EncodedCheckpoint, like: Any, available: set[int] | None = None
+) -> tuple[Any, RestoreReport]:
+    buf, report = restore_bytes(ckpt, available)
+    return bytes_to_state(buf, ckpt.meta, like), report
+
+
+def scatter_state(buf: torch.Tensor | None, like: Any) -> Any:
+    """The serialized state ``buf`` (on rank 0; ``None`` elsewhere) laid
+    out as ``like``, whose leaves are DTensors: each piece is cut from rank
+    0's bytes and sent to its ranks on its own
+    (``dist.root_io.scatter_from_root``).  Every rank of the mesh calls
+    this and gets its own blocks."""
+    leaves, off = [], 0
+    for leaf in _flatten(like):
+        got = []
+        for piece in _pieces(leaf):
+            nb, whole = _nbytes(piece), None
+            if buf is not None:
+                whole = buf[off:off + nb].clone().view(piece.dtype).reshape(tuple(piece.shape))
+            got.append(scatter_from_root(whole, piece))
+            off += nb
+        leaves.append(Stack(got) if isinstance(leaf, Stack) else got[0])
+    return _unflatten(like, leaves)
 
 
 def repair_node(ckpt: EncodedCheckpoint, failed: int) -> tuple[torch.Tensor, dict]:
@@ -303,10 +415,21 @@ class CheckpointManager:
     def _stepdir(self, step: int) -> str:
         return os.path.join(self.dir, f"step_{step:08d}")
 
-    def save(self, step: int, state: Any) -> EncodedCheckpoint:
+    def save(self, step: int, state: Any) -> EncodedCheckpoint | None:
+        """Encode ``state`` and write its payloads and ``meta.json``.  A
+        state of DTensors is saved by every rank of its mesh together: rank
+        0 gathers each leaf, encodes and writes, and returns the checkpoint;
+        the others return ``None`` once the files are written."""
         family, n, k, r = self.spec
         ckpt = encode_state(state, family=family, n=n, k=k, r=r, step=step,
                             device=self.device)
+        if ckpt is not None:
+            self._write(step, ckpt)
+        if _sharded(state):
+            dist.barrier()
+        return ckpt
+
+    def _write(self, step: int, ckpt: EncodedCheckpoint) -> None:
         with obs.span("ckpt.save", cat="checkpoint", step=step):
             d = self._stepdir(step)
             os.makedirs(d, exist_ok=True)
@@ -327,7 +450,6 @@ class CheckpointManager:
             with open(os.path.join(d, "meta.json"), "w") as f:
                 json.dump(meta, f)
             self._gc()
-        return ckpt
 
     def steps(self) -> list[int]:
         out = []
@@ -347,14 +469,27 @@ class CheckpointManager:
             os.rmdir(d)
 
     def load(self, like: Any, step: int | None = None) -> tuple[Any, int, RestoreReport]:
+        """The state of ``step`` (the latest by default) in ``like``'s tree.
+        Where ``like``'s leaves are DTensors every rank of their mesh calls
+        this: rank 0 alone reads the files and restores (repairs or
+        decodes) once, then each leaf is laid out into ``like``'s placements
+        (``scatter_state``); every rank gets its own blocks and the same
+        step and report."""
+        if _sharded(like):
+            return self._load_sharded(like, step)
+        step = self._latest(step)
+        with obs.span("ckpt.load", cat="checkpoint", step=step):
+            ckpt = self._read(step)
+            state, report = restore_state(ckpt, like, available=set(ckpt.payloads))
+            return state, step, report
+
+    def _latest(self, step: int | None) -> int:
         steps = self.steps()
         if not steps:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
-        step = step if step is not None else steps[-1]
-        with obs.span("ckpt.load", cat="checkpoint", step=step):
-            return self._load_step(like, step)
+        return step if step is not None else steps[-1]
 
-    def _load_step(self, like: Any, step: int) -> tuple[Any, int, RestoreReport]:
+    def _read(self, step: int) -> EncodedCheckpoint:
         d = self._stepdir(step)
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
@@ -369,9 +504,26 @@ class CheckpointManager:
             if zlib.crc32(raw) != meta["crcs"][str(i)]:
                 continue  # corrupt -> treat as failed node
             payloads[i] = np.frombuffer(raw, dtype=np.uint8).reshape(shape)
-        ckpt = checkpoint_from_arrays(
+        return checkpoint_from_arrays(
             tuple(meta["code"]), payloads, meta["total_bytes"], meta["leaves"],
             step, device=self.device,
         )
-        state, report = restore_state(ckpt, like, available=set(payloads))
-        return state, step, report
+
+    def _load_sharded(self, like: Any, step: int | None) -> tuple[Any, int, RestoreReport]:
+        buf = None
+        head: list = [None, None, None]  # step, report, error
+        if dist.get_rank() == 0:
+            try:
+                head[0] = self._latest(step)
+                with obs.span("ckpt.load", cat="checkpoint", step=head[0]):
+                    ckpt = self._read(head[0])
+                    if ckpt.meta != leaf_meta(like):
+                        raise ValueError("the checkpoint's leaves differ from the state's")
+                    buf, head[1] = restore_bytes(ckpt, set(ckpt.payloads))
+            except (OSError, ValueError) as err:  # every rank raises it
+                head[2] = f"{type(err).__name__}: {err}"
+        dist.broadcast_object_list(head, src=0)
+        if head[2] is not None:
+            raise RuntimeError(f"rank 0 could not restore the checkpoint: {head[2]}")
+        state = scatter_state(buf, like)
+        return state, head[0], head[1]

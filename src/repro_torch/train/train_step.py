@@ -39,7 +39,12 @@ from repro_torch.dist.sharding import (
 )
 from repro_torch.models import backbone
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.weights import param_axes, shard_model
+from repro_torch.models.weights import (
+    opt_state_tree,
+    param_axes,
+    reference_tree,
+    shard_model,
+)
 from .optimizer import AdamWConfig, adamw_update, init_opt_state, shard_opt_state
 from .schedule import ScheduleConfig, learning_rate
 from .xent import sharded_xent, vocab_parallel_xent
@@ -201,5 +206,10 @@ def init_train_state(generator: torch.Generator, cfg: ArchConfig, tcfg: TrainCon
 
 
 def train_state(model: backbone.Backbone, opt_state: dict) -> dict:
-    """The checkpointed state: ``{"params": {name: tensor}, "opt": opt_state}``."""
-    return {"params": dict(model.named_parameters()), "opt": opt_state}
+    """The checkpointed state, ``{"params": ..., "opt": ...}`` in the
+    reference's tree (``weights.reference_tree``: each layer stack one
+    ``Stack`` leaf, its layers the live tensors, nothing copied), so that a
+    checkpoint of it is the reference's byte for byte."""
+    cfg = model.cfg
+    return {"params": reference_tree(cfg, dict(model.named_parameters())),
+            "opt": opt_state_tree(cfg, opt_state)}

@@ -55,9 +55,11 @@ def case_config(case):
     return dataclasses.replace(cfg, moe=moe)
 
 
-def make_mesh(shape=(2, 4)):
-    return jax.make_mesh(tuple(shape), ("data", "model"),
-                         axis_types=(jax.sharding.AxisType.Auto,) * 2)
+def make_mesh(shape=(2, 4), axes=None):
+    axes = tuple(axes or (("pod", "data", "model") if len(shape) == 3 else ("data", "model")))
+    return jax.make_mesh(tuple(shape), axes,
+                         axis_types=(jax.sharding.AxisType.Auto,) * len(axes))
+
 """
 
 

@@ -338,6 +338,71 @@ def test_sharded_family_prefill_on_card_over_gloo(dev, tmp_path, arch, use_flash
     assert all(rank["flash_launches"] == launches for rank in row["ranks"])
 
 
+def test_sharded_pod_prefill_on_card_over_gloo(dev, tmp_path):
+    """zamba2 smoke in f32 on 8 ranks of this card as a (pod 2, data 2, model
+    2) mesh under the multi-pod ``tp`` rules (the batch over pod x data),
+    its shared block through the flash kernel: every position's logits
+    equal one process's, the kernel launched on every rank."""
+    case = model_run.Case("zamba2-1.2b", mesh=(2, 2, 2), batch=4, seq=64, smoke=True,
+                          param_dtype="float32", all_positions=True)
+    (row,) = model_run.run([case], workdir=str(tmp_path), device="cuda")
+    cfg = model_run.case_config(case)
+    inputs = {k: torch.from_numpy(v).cuda() for k, v in model_run.case_inputs(case).items()}
+    with torch.no_grad():
+        want, _ = backbone.forward(model_run.seeded_model(case, "cuda"), cfg, inputs)
+    np.testing.assert_allclose(row["logits_all"], want.float().cpu().numpy(), atol=1e-4, rtol=0)
+    assert all(rank["flash_launches"] == cfg.n_layers // cfg.shared_attn_every
+               for rank in row["ranks"])
+
+
+def test_sharded_checkpoint_round_trip_on_card(dev, tmp_path):
+    """A StarCoder2-3B smoke train state in f32 over a (2, 2, 2) mesh of 8
+    ranks of this card, under fsdp, after one step: the sharded save (rank 0
+    gathers, encodes through the GF kernel, writes) equals a one-process
+    encode of the gathered state, node 2 is lost, the load repairs and lays
+    every rank's blocks out bit-equal to the saved ones, and the resumed
+    step's loss equals the uninterrupted one's."""
+    case = model_run.Case("starcoder2-3b", kind="train", mode="fsdp", mesh=(2, 2, 2), batch=4,
+                          seq=64, smoke=True, param_dtype="float32", checkpoint=True)
+    (row,) = model_run.run([case], workdir=str(tmp_path), device="cuda")
+    ck = [rank["checkpoint"] for rank in row["ranks"]]
+    assert ck[0]["crcs"] == ck[0]["crcs_one_process"]
+    assert all(c["restored_equal"] and c["mode"] == "repair" and c["repaired_nodes"] == [2]
+               for c in ck)
+    assert all(c["resumed"]["loss"] == c["uninterrupted"]["loss"] for c in ck)
+    assert ck[0]["gf_launches"] > 0
+
+
+def test_flash_custom_op_fake_and_real(dev):
+    """The flash kernel's custom op: on fake card tensors its fake kernel
+    gives the output's spec and the FLOP counter ``chip_smoke.py``'s
+    ``flash_flops``, with no launch counted; on real ones it equals the
+    launch it wraps bit for bit."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import flash_attention as fa
+
+    before = fa.flash_attention.launches
+    with FakeTensorMode():
+        q = torch.empty(2, 300, 8, 128, dtype=torch.bfloat16, device="cuda")
+        k = torch.empty(2, 300, 2, 128, dtype=torch.bfloat16, device="cuda")
+        with FlopCounterMode(display=False) as fc:
+            out = fa.flash_attention(q, k, k, causal=True)
+        assert tuple(out.shape) == (2, 300, 8, 128) and out.dtype == torch.bfloat16
+    pairs = sum(min(i + 1, 300) for i in range(300))
+    assert fc.get_total_flops() == 4 * 2 * 8 * 128 * pairs
+    assert fa.flash_attention.launches == before
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(2, 300, 8, 128, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(2, 300, 2, 128, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(2, 300, 2, 128, generator=gen, device="cuda").bfloat16()
+    got = torch.ops.repro_torch.flash_attention(q, k, v, True)
+    want = fa.launch(fa._launch_fn(), q, k, v, True)
+    assert torch.equal(got, want)
+    assert fa.flash_attention.launches == before
+
+
 # tests/test_flash_attention.py SWEEP: b, sq, sk, h, kvh, d, causal; plus ragged
 # lengths, and the bf16 kernel's pipeline cases: 16 kv tiles wrap its 2-stage
 # K/V ring 8 times; Sq < Sk, causal, ragged on both axes; a causal 192-row

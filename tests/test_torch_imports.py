@@ -41,7 +41,9 @@ def test_port_modules_are_found():
                  "repro_torch.examples.serve_demo", "repro_torch.examples.quickstart",
                  "repro_torch.examples.repair_layering", "repro_torch.dist.sharding",
                  "repro_torch.dist.mesh_collectives", "repro_torch.dist.model_run",
-                 "repro_torch.dist.spawn"):
+                 "repro_torch.dist.spawn", "repro_torch.dist.root_io",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline_probe",
+                 "repro_torch.launch.buffers", "repro_torch.launch.orchestrate_dryrun"):
         assert must in names
 
 

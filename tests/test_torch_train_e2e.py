@@ -12,6 +12,7 @@ from repro_torch import configs
 from repro_torch.core.codes import make_code
 from repro_torch.examples import elastic_recovery, train_e2e
 from repro_torch.launch import train as launch_train
+from repro_torch.models.weights import named_arrays
 from repro_torch.train import (
     DataConfig,
     SyntheticStream,
@@ -45,9 +46,10 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys, lose_shard):
                                   device="cpu")
     restored, step, report = mgr.load(train_state(model, opt))
     assert step == 16 and report.mode == ("repair" if lose_shard else "direct")
+    restored_params = named_arrays(cfg, restored["params"])  # the reference's tree
     with torch.no_grad():
         for name, p in model.named_parameters():
-            p.copy_(restored["params"][name])
+            p.copy_(restored_params[name])
         batch = SyntheticStream(cfg, DataConfig(batch=4, seq=64), device="cpu").batch_at(16)
         want, _ = loss_fn(model, cfg, TrainConfig(), batch)
     capsys.readouterr()
