@@ -97,8 +97,8 @@ drives the main path through the entry points a user calls, at the paper's
    on one repeated batch of 2 x 2048 positions of ``SyntheticStream`` (vlm:
    256 patch embeddings + 1792 tokens; whisper: 1500 frames and 448 tokens):
    11a dbrx-132b and 11b grok-1-314b (depth cut to 1 layer by memory: see
-   ``FAMILY_TRAIN``), 11c zamba2-1.2b, 11d xlstm-125m, 11e internvl2-1b and
-   11f whisper-small at full depth.  A warm-up step with a hook on every
+   ``FAMILY_TRAIN``), 11d xlstm-125m at 4 of 12 blocks (by time), and 11c
+   zamba2-1.2b, 11e internvl2-1b and 11f whisper-small at full depth.  A warm-up step with a hook on every
    parameter's gradient (each finite and nonzero; grok's unused ``moe.gate``
    gets none: its moments stay zero and it equals its decayed self), 2 steps
    timed by the host clock and CUDA events, one under ``torch.profiler``;
@@ -134,7 +134,7 @@ drives the main path through the entry points a user calls, at the paper's
    4096 tokens, a warm-up and a timed step), 14b dbrx-132b (1 of 40 layers)
    under ``fsdp``, expert parallel, at a drop-free capacity on 2 x 512 and
    at its config's on 2 x 1024; 14c StarCoder2-3B (4 of 30 layers) and 14d
-   dbrx-132b (2 of 40 layers) decoded under ``tp`` (batch 8, 32 prompt and 16 greedy
+   dbrx-132b (2 of 40 layers) decoded under ``tp`` (batch 8, 16 prompt and 16 greedy
    tokens).  Each is held to one process's run on the same seeded weights:
    rank 0's first loss within 1% and gradient norm within 5%, the dense
    loss falling; the decode's logits within 5% of the largest (14d with
@@ -157,7 +157,19 @@ drives the main path through the entry points a user calls, at the paper's
    to its plain version; 15e-h one warm-up and one timed train step under
    ``fsdp`` (``remat="full"``, each config's AdamW state, 2 x 1024
    positions; whisper 2 x 448), held as 14a; 15i-l decode under ``tp``
-   (batch 8, 32 prompt and 16 greedy tokens, KV caches of 64), held as 14c.
+   (batch 8, 16 prompt and 16 greedy tokens, KV caches of 64), held as 14c;
+16. the pod axis (16a: StarCoder2-3B, 4 layers, over (pod 2, data 2, model
+   2)), the sharded checkpoint with a lost node (16b) and the launch layer's
+   dry run on fake card tensors (16c): see ``phase_pod`` and ``phase_dryrun``;
+17. the verification layer (``phase_check``): ``repro_torch.check``'s plan
+   sweep, lowered sweep, lint and mutation self-tests in this process; the
+   built kernels' launch-geometry queries held equal to the Python models
+   the checker sweeps, at every shape of its ``cuda-kernel`` sweep; and
+   guard-band launches (GF into an offset view of a 0xA5-filled buffer on
+   the aligned and the unaligned path, flash into an output with padded
+   strides whose gaps hold NaN), the guards untouched and the outputs equal
+   to the plain versions.  At most ``CHECK_PHASE_S`` seconds, printed beside
+   the card's name and power limit.
 
 The build prints ptxas's report of every kernel (registers, spills) and the
 bf16 flash kernel's geometry (tiles, stages, dynamic shared memory, the
@@ -182,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -327,9 +340,12 @@ STUB_EMBED_STD = 0.02
 # bytes a parameter, dbrx's layer 4.49e9 parameters (35.9 GB), grok's 6.53e9
 # (52.2 GB), and the update's f32 temporaries of one slice, the global norm's
 # of the largest leaf (up to 12.9 GB for grok's experts) and the backward's
-# come on top: a second layer does not fit in 80 GB for either
+# come on top: a second layer does not fit in 80 GB for either.  xlstm's
+# depth is cut by time to 4 of 12 blocks (3 mLSTM, 1 sLSTM, as phase 15):
+# its sLSTM's Python time loop made 11d host-bound, 105-135 s of the script
+# with its profile's 449,000 kernels, the most of any part of phase 11
 FAMILY_TRAIN = [("11a", "dbrx-132b", 1), ("11b", "grok-1-314b", 1),
-                ("11c", "zamba2-1.2b", None), ("11d", "xlstm-125m", None),
+                ("11c", "zamba2-1.2b", None), ("11d", "xlstm-125m", 4),
                 ("11e", "internvl2-1b", None), ("11f", "whisper-small", None)]
 # 2 x 2048 positions a step: vlm 256 patch embeddings + 1792 text tokens,
 # audio 1500 frames through the encoder and the 448-token text context
@@ -372,7 +388,8 @@ SHARDED_MOE = (2, 2048)
 # out of memory, 78.3 of 79.2 GB in use by 9 processes
 # 14c StarCoder2-3B (full width, 4 of 30 layers: cut from 30, 1.41 s a
 # token, as 14a) and 14d dbrx-132b (2 of 40 layers, 31 GB across
-# the ranks, as 13b) decoded under ``tp``: batch 8, 32-token prompts fed
+# the ranks, as 13b) decoded under ``tp``: batch 8, 16-token prompts (cut
+# from 32 in PR 24 by time: 14c-d and 15i-l fed them in 60-78 s) fed
 # through the decode step, then 16 greedy tokens, KV caches of 64.  14d's
 # parity run routes every token to all 16 experts: at the config's top 4 of
 # 16 random routers, bf16 differences of the mesh's partial sums flip a
@@ -388,7 +405,7 @@ MESH_TRAIN = [("14a", "starcoder2-3b", 4, (2, 4096), "fsdp"),
 MESH_TRAIN_MOE_PARITY = (2, 512)
 MESH_TRAIN_STEPS = 2  # a warm-up step, then a timed one
 MESH_DECODE = [("14c", "starcoder2-3b", 4), ("14d", "dbrx-132b", 2)]
-MESH_DECODE_BATCH, MESH_DECODE_PROMPT, MESH_DECODE_NEW, MESH_DECODE_KV = 8, 32, 16, 64
+MESH_DECODE_BATCH, MESH_DECODE_PROMPT, MESH_DECODE_NEW, MESH_DECODE_KV = 8, 16, 16, 64
 # rank 0's first step against one process's on the same seeded weights and
 # batch: bf16 activations, other orders of sums (the mesh's partial sums and
 # reductions) and, for the MoE, the balance loss of each rank's own tokens
@@ -428,6 +445,20 @@ POD_LOGIT_RTOL, POD_LOSS_RTOL, POD_NORM_RTOL = 0.02, 0.005, 0.02
 DRYRUN_CELLS = [("starcoder2-3b", "prefill_32k", False), ("starcoder2-3b", "prefill_32k", True)]
 PROBE_CELL = ("starcoder2-3b", "train_4k", True)
 REFERENCE_USEFUL_BAND = (0.8, 1.3)  # tests/test_artifacts.py::test_train_cells_probe_validated
+# phase 17: the verification layer's gate takes seconds on the host; the
+# phase (gate, geometry queries, guard-band launches) must stay within this
+CHECK_PHASE_S = 60.0
+# 17c: guard-band launches at the ragged shapes: GF (G, R, K, B) and the
+# output's byte offset inside its 0xA5-filled buffer (an odd offset or B
+# takes the unaligned path, the last the 16-byte aligned one); flash (b, sq,
+# sk, h, kvh, d, causal) and dtype, the output padded by GUARD_PAD rows of S,
+# heads and head-dim columns filled with NaN
+GF_GUARD = [((9, 5, 7, 333), 4097), ((1, 6, 12, 65_541), 4096), ((1, 200, 8, 5_008), 4096)]
+FLASH_GUARD = [((2, 333, 517, 8, 2, 64, True), torch.bfloat16),
+               ((2, 1500, 1500, 24, 2, 128, True), torch.bfloat16),
+               ((2, 77, 130, 6, 3, 32, False), torch.float32)]
+GUARD_PAD = (3, 1, 8)
+GUARD_BYTES = 4096
 
 
 def check(cond: bool, what: str) -> None:
@@ -1561,6 +1592,7 @@ def phase_sharded() -> tuple[dict, int]:
                "ms_by_rank": [r["ms"] for r in ranks],
                "build_s_by_rank": [r["build_s"] for r in ranks],
                "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
+               "peak_reserved_bytes_by_rank": [r["peak_reserved_bytes"] for r in ranks],
                "host_staged_bytes_by_rank": [r["host_staged_bytes"] for r in ranks],
                "collectives_rank0": ranks[0]["collectives"],
                "moe_collectives_rank0": ranks[0]["moe_collectives"],
@@ -1662,8 +1694,7 @@ def mesh_reference(case: model_run.Case) -> dict:
             opt = init_opt_state(model, tcfg.optimizer)
             batch = {k: torch.from_numpy(v).to(DEVICE)
                      for k, v in model_run.case_batch(case).items()}
-            _, _, metrics = make_train_step(cfg, tcfg)(model, opt, batch,
-                                                       model_run.TRAIN_WARMUP)
+            metrics = make_train_step(cfg, tcfg)(model, opt, batch, model_run.TRAIN_WARMUP)[2]
             out = {key: float(metrics[key]) for key in ("loss", "grad_norm", "moe_aux")}
             del opt, batch, metrics
         else:
@@ -1686,6 +1717,7 @@ def _mesh_row(ranks: list[dict]) -> dict:
             "collective_bytes_by_axis_rank0": ranks[0]["collective_bytes_by_axis"],
             "ms_by_rank": [r["ms"] for r in ranks],
             "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
+            "peak_reserved_bytes_by_rank": [r["peak_reserved_bytes"] for r in ranks],
             "host_staged_bytes_by_rank": [r["host_staged_bytes"] for r in ranks],
             "collectives_forward_rank0": ranks[0]["collectives"],
             "collectives_backward_rank0": ranks[0]["backward_collectives"],
@@ -1723,11 +1755,13 @@ def phase_mesh_runs(smi: str, phase: str, cases: list) -> tuple[dict, int]:
             refs[f"{label} {role}"] = {**mesh_reference(case), "host_s": time.perf_counter() - t}
     flash_attention.launches = before  # the references' launches are yardsticks
     parent_bytes = torch.cuda.memory_allocated()
+    parent_reserved = torch.cuda.memory_reserved()
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         rows = model_run.run([case for _, _, case in cases], workdir=d, device=DEVICE)
     out = {f"{phase} ranks": {"spawn_host_s": time.perf_counter() - t,
-                              "parent_allocated_bytes": parent_bytes}}
+                              "parent_allocated_bytes": parent_bytes,
+                              "parent_reserved_bytes": parent_reserved}}
     print(f"[{phase} ranks] {json.dumps(out[f'{phase} ranks'])}")
     launches = 0
     for (label, role, case), row in zip(cases, rows):
@@ -1993,6 +2027,122 @@ def phase_demos() -> tuple[dict, int]:
             "layering_gf_launches": launches - quick_launches}, launches
 
 
+def phase_check(smi: str) -> dict:
+    """17: the verification layer on the card.  (a) ``repro_torch.check``'s
+    plan sweep, lowered sweep and lint of the port and this script, and both
+    mutation self-tests, in this process: no FAIL, every mutation caught (the
+    lowered ones by their owner alone), the record counts by family and
+    status; (b) at every GF and flash shape of the ``cuda-kernel`` sweep the
+    built kernels' ``..._query`` launch equal to the Python model at this
+    card's SM count and blocks per SM, and the model clean under the
+    geometry rules; (c) guard-band launches through the launchers' own
+    bindings (not counted as launches): GF into an offset view of a buffer
+    filled with 0xA5, flash into an output with padded strides whose gaps
+    hold NaN; the guard untouched and the output equal to the plain version
+    (GF byte for byte, flash within ``FLASH_ATOL``)."""
+    from repro_torch.check.__main__ import lint_targets, summary
+    from repro_torch.check.lowered import cuda as ccuda
+    from repro_torch.check.lowered import run_lowered_sweep, self_test_lowered
+    from repro_torch.check.plan import run_registry_sweep, self_test
+    from repro_torch.check.report import CheckReport
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gf_matmul as gk
+
+    t0 = time.perf_counter()
+    report = CheckReport(plan_records=run_registry_sweep(), lowered_records=run_lowered_sweep(),
+                         lint_records=lint_targets(Path(ROOT)))
+    counts = summary(report)
+    plan_rows, lowered_rows = self_test(), self_test_lowered()
+    gate_s = time.perf_counter() - t0
+    print(f"[17a check] {smi}: {json.dumps({'records': counts, 'gate_s': gate_s})}")
+    for f in report.failures():
+        print(f"[17a check] FAIL {f.rule}: {f.message}")
+    check(report.ok, f"17a: {len(report.failures())} FAIL finding(s)")
+    check(len(report.plan_records) == 144, f"17a: {len(report.plan_records)} plan records")
+    for family, want in (("spmd-schedule", 46), ("shard-rules", 50), ("cuda-kernel", 12)):
+        got = sum(counts.get(f"lowered {family}", {}).values())
+        check(got >= want if family == "cuda-kernel" else got == want,
+              f"17a: {got} {family} records")
+    missed = [row[0] for row in plan_rows if not row[2]] + [
+        row[0] for row in lowered_rows if not (row[2] and row[3])]
+    check(not missed, f"17a: mutations not caught by their owner alone: {missed}")
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gf_lib, fa_lib = build.load("gf_matmul"), build.load("flash_attention")
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    per_sm = set()
+    gf_shapes = ccuda.gf_sweep_shapes()
+    for label, shape in gf_shapes:
+        got = gk.geometry_query(gf_lib, *shape)
+        model = gk.gf_matmul_geometry(*shape, sms=sms, per_sm=got["per_sm"])
+        per_sm.add(got["per_sm"])
+        check(got == model.query_fields(), f"17b: {label} {shape}: the kernel's launch {got} "
+              f"!= the model's {model.query_fields()}")
+        check(not ccuda.analyze_geometry(model), f"17b: {label} fails the geometry rules")
+    flash_shapes = ccuda.flash_sweep_shapes()
+    for label, dtype, (b, sq, sk, h, kvh, d, causal) in flash_shapes:
+        got = fa.work_geometry_query(fa_lib, b, sq, sk, h, kvh, d, dtypes[dtype])
+        model = fa.flash_attention_work_geometry(b, sq, sk, h, kvh, d, dtypes[dtype], sms,
+                                                 causal=causal)
+        check(got == model.query_fields(), f"17b: {label}: the kernel's launch {got} != the "
+              f"model's {model.query_fields()}")
+        check(not ccuda.analyze_geometry(model), f"17b: {label} fails the geometry rules")
+    print(f"[17b geometry] {sms} SMs, GF blocks per SM {sorted(per_sm)}: {len(gf_shapes)} GF "
+          f"and {len(flash_shapes)} flash launches equal to their models")
+
+    gf_guard = []
+    for (g, r, k, b), offset in GF_GUARD:
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(SEED + g * r * k)
+        m, x = rand_bytes((g, r, k), gen), rand_bytes((g, k, b), gen)
+        buf = torch.full((offset + g * r * b + GUARD_BYTES,), 0xA5, dtype=torch.uint8,
+                         device=DEVICE)
+        out = buf[offset:offset + g * r * b].view(g, r, b)
+        aligned = b % 16 == 0 and out.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+        gk.launch(gk._launch_fn(), m, x, out)
+        torch.cuda.synchronize()
+        guard_ok = bool((buf[:offset] == 0xA5).all()) and bool(
+            (buf[offset + g * r * b:] == 0xA5).all())
+        equal = all(torch.equal(out[i], gf_matmul_table(m[i], x[i])) for i in range(g))
+        gf_guard.append({"shape": [g, r, k, b], "offset": offset, "aligned_path": aligned,
+                         "guard_ok": guard_ok, "equal": equal})
+        check(guard_ok and equal, f"17c: GF guard band at {(g, r, k, b)}: {gf_guard[-1]}")
+    check({row["aligned_path"] for row in gf_guard} == {True, False},
+          "17c: the GF guard launches missed the aligned or the unaligned path")
+    flash_guard = []
+    for (b, sq, sk, h, kvh, d, causal), dtype in FLASH_GUARD:
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(SEED + sq + h)
+        q = torch.randn((b, sq, h, d), generator=gen, device=DEVICE).to(dtype)
+        k = torch.randn((b, sk, kvh, d), generator=gen, device=DEVICE).to(dtype)
+        v = torch.randn((b, sk, kvh, d), generator=gen, device=DEVICE).to(dtype)
+        ps, ph, pd = GUARD_PAD
+        full = torch.full((b, sq + ps, h + ph, d + pd), float("nan"), dtype=dtype,
+                          device=DEVICE)
+        out = full[:, :sq, :h, :d]
+        fa.launch(fa._launch_fn(), q, k, v, causal, out=out)
+        torch.cuda.synchronize()
+        gaps = torch.ones(full.shape, dtype=torch.bool, device=DEVICE)
+        gaps[:, :sq, :h, :d] = False
+        guard_ok = bool(torch.isnan(full[gaps]).all())
+        err = float((out.float() - flash_attention_ref(q, k, v, causal=causal).float())
+                    .abs().max())
+        flash_guard.append({"shape": [b, sq, sk, h, kvh, d], "causal": causal,
+                            "dtype": str(dtype), "strides": list(out.stride()),
+                            "guard_ok": guard_ok, "max_abs_err": err})
+        check(guard_ok and err <= FLASH_ATOL[dtype],
+              f"17c: flash guard band at {(b, sq, sk, h, kvh, d)}: {flash_guard[-1]}")
+    phase_s = time.perf_counter() - t0
+    print(f"[17c guard] {json.dumps({'gf': gf_guard, 'flash': flash_guard})}")
+    print(f"[17 check] {smi}: {phase_s:.1f} s")
+    check(phase_s <= CHECK_PHASE_S, f"17: {phase_s:.1f} s, over {CHECK_PHASE_S} s")
+    return {"records": counts, "gate_s": gate_s, "phase_s": phase_s,
+            "geometry_shapes_checked": {"gf_matmul": len(gf_shapes),
+                                        "flash_attention": len(flash_shapes)},
+            "guard_ok": {"gf_matmul": all(r["guard_ok"] and r["equal"] for r in gf_guard),
+                         "flash_attention": all(r["guard_ok"] for r in flash_guard)}}
+
+
 def ptxas_report(log: str) -> list[dict]:
     """ptxas's lines for each kernel of one build log: the (mangled) entry,
     its registers at entry, spill stores and loads, and static shared memory.
@@ -2176,7 +2326,7 @@ def main() -> int:
     ck11 = phase_state_checkpoint(whisper_state)
     phases["train 11g"] = {"host_s": time.perf_counter() - t}
     print(f"[11g checkpoint whisper-small] {smi}: {json.dumps(ck11)}")
-    del whisper_state
+    del whisper_state, state  # the loop's last state is whisper's too
     torch.cuda.empty_cache()
     t = time.perf_counter()
     demos, demo_launches = phase_demos()
@@ -2217,6 +2367,12 @@ def main() -> int:
     phase_dryrun(smi)
     check(flash_attention.launches == flash_before, "16c launched the flash kernel")
     phases["dry run"] = {"host_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    gf_before, flash_before = gf_matmul_batched.launches, flash_attention.launches
+    chk = phase_check(smi)
+    check((gf_matmul_batched.launches, flash_attention.launches) == (gf_before, flash_before),
+          "17 counted a launch of the main path's wrappers")
+    phases["check"] = {"host_s": time.perf_counter() - t}
 
     head = k1["timings"][0]  # DRC(9,6,3) full-width parity encode
     kernels = {"kernels": [{
@@ -2238,6 +2394,8 @@ def main() -> int:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": None,
+        "geometry_shapes_checked": chk["geometry_shapes_checked"]["gf_matmul"],
+        "guard_ok": chk["guard_ok"]["gf_matmul"],
         "shape": head["shape"],
         "shapes": [{key: row[key] for key in (
             "label", "shape", "ms", "ms_spread", "bound_ms", "bound_share")}
@@ -2271,6 +2429,8 @@ def main() -> int:
         "library_ms": fl["library_ms"],
         "library_ms_spread": fl["library_ms_spread"],
         "kernel_over_library": fl["kernel_over_library"],
+        "geometry_shapes_checked": chk["geometry_shapes_checked"]["flash_attention"],
+        "guard_ok": chk["guard_ok"]["flash_attention"],
         "shape": fl["shape"],
         "ragged": {key: fl["ragged"][key] for key in (
             "shape", "ms", "ms_spread", "tflops", "bound_ms", "bound_share", "library_ms",

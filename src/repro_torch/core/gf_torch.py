@@ -59,6 +59,8 @@ def gf_matmul_table(m: torch.Tensor | np.ndarray, x: torch.Tensor) -> torch.Tens
 
 def xor_reduce(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """XOR of the uint8 slices of ``x`` along ``axis``."""
+    if x.dtype != torch.uint8:
+        raise TypeError(f"xor_reduce takes uint8, got {x.dtype}")
     out = torch.zeros_like(x.select(axis, 0))
     for t in x.unbind(axis):
         out ^= t

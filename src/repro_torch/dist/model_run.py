@@ -55,7 +55,8 @@ mesh axis (``collective_bytes_by_axis``), those run through
 ``mesh_collectives`` (``moe_collectives``: the MoE layer's own, and in
 training also the cross-entropy's and the global norm's, by phase), the
 (token, choice) pairs routed and dropped, the flash kernel's launches, the
-bytes staged through the host, peak memory, the time, and the time the rank
+bytes staged through the host, peak memory (allocated and reserved: the
+ranks share one card), the time, and the time the rank
 spent building the model (``build_s``, 0 where it was reused).  A prefill's
 first flash call's local shards (``attention.record_flash_inputs``) are also
 run through the kernel and its plain version (``flash_max_abs_err``; these
@@ -248,7 +249,7 @@ def _model_key(case: Case) -> tuple:
 
 def _sync(device: str) -> None:
     if device == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # check: ignore[host-sync] a rank's timer ends on the card
 
 
 def _build(case: Case, mesh: Any, rank: int, world: int, device: str):
@@ -261,6 +262,9 @@ def _build(case: Case, mesh: Any, rank: int, world: int, device: str):
         whole = sum(p.numel() * p.element_size()
                     for p in backbone.Backbone(cfg, device="meta").parameters())
         at_once = max(1, int(0.5 * torch.cuda.get_device_properties(0).total_memory // whole))
+        # the ranks share one card: none starts a whole model while another
+        # still holds the last case's state
+        dist.barrier()
     model = None
     for first in range(0, world, at_once):
         if first <= rank < first + at_once:
@@ -337,6 +341,7 @@ def _measured(run_: dict, device: str) -> dict:
     return {
         "ms": run_["ms"],
         "peak_bytes": torch.cuda.max_memory_allocated() if device == "cuda" else None,
+        "peak_reserved_bytes": torch.cuda.max_memory_reserved() if device == "cuda" else None,
         "host_staged_bytes": int(tr.counter_value("mesh.bytes.host_staged")),
         "collectives": comm.counts, "backward_collectives": comm.backward_counts,
         "collective_bytes_by_axis": comm.bytes_by_axis,
@@ -604,7 +609,11 @@ def run(cases: list[Case], *, workdir: str, device: str = "cuda") -> list[dict]:
     if unknown:
         raise ValueError(f"unknown case kinds {unknown}; available: {sorted(_RUNNERS)}")
     world = worlds.pop()
-    per_rank = spawn_ranks(_rank_rows, world, workdir, (list(cases),), device=device)
+    # the ranks share one card: expandable segments keep each allocator's
+    # reserve near what it holds (their slack, 1.5 GB a rank in dbrx's
+    # training, ran the card out of memory)
+    env = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"} if device == "cuda" else None
+    per_rank = spawn_ranks(_rank_rows, world, workdir, (list(cases),), device=device, env=env)
     merged = []
     for i, case in enumerate(cases):
         rows = [per_rank[rank][i] for rank in range(world)]

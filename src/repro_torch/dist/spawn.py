@@ -42,17 +42,29 @@ def _rank_main(rank: int, world: int, init_file: str, body: Callable, device: st
 
 
 def spawn_ranks(body: Callable[..., list], world: int, workdir: str, args: tuple = (), *,
-                device: str = "cuda", timeout_s: float = 900) -> list[list[Any]]:
+                device: str = "cuda", timeout_s: float = 900,
+                env: dict[str, str] | None = None) -> list[list[Any]]:
     """Run ``body`` (a module-level function, so that ``spawn`` can pickle
     it) on ``world`` ranks and return each rank's rows, in rank order.
-    ``timeout_s`` bounds each collective of the group."""
+    ``timeout_s`` bounds each collective of the group; ``env`` is added to
+    the ranks' environment (this process's holds it only while they run)."""
     os.makedirs(workdir, exist_ok=True)
     init_file = os.path.join(workdir, "pg_init")
     if os.path.exists(init_file):
         os.remove(init_file)
-    mp.start_processes(_rank_main,
-                       args=(world, init_file, body, device, workdir, tuple(args), timeout_s),
-                       nprocs=world, join=True, start_method="spawn")
+    env = dict(env or {})
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    try:
+        mp.start_processes(_rank_main,
+                           args=(world, init_file, body, device, workdir, tuple(args), timeout_s),
+                           nprocs=world, join=True, start_method="spawn")
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
     per_rank = []
     for rank in range(world):
         with open(os.path.join(workdir, f"rank{rank}.json")) as f:

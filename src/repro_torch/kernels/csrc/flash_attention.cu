@@ -788,17 +788,47 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int heads, int seq, int 
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// Where a launch's blocks go, decided on the host: the grid, the work items
+// its blocks walk (bf16: item w, w + grid, ..; f32: one per block), the
+// threads and the dynamic shared memory.  The launchers and the query both
+// call this, so what the checker is given is what runs;
+// kernels/flash_attention.py::flash_attention_work_geometry models it with
+// the SM count as an argument.
+struct WorkGeometry {
+  long long grid_x, grid_y, items, threads, smem, sms;
+};
+
+template <int D>
+cudaError_t work_geometry(int dtype, const Params& p, WorkGeometry& w) {
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    int sms;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    w.sms = sms;
+  }
+  if (err != cudaSuccess) return err;
+  if (dtype == 1) {
+    const long long n_work = static_cast<long long>(p.B) * p.H * ((p.Sq + kTileM - 1) / kTileM);
+    if (n_work > 0x7fffffff) return cudaErrorInvalidValue;
+    const long long sms = w.sms;
+    // one CTA per SM (its shared memory admits no second), each walking items
+    const int grid = static_cast<int>(n_work < sms ? n_work : sms);
+    w = {grid, 1, n_work, kThreads, Tiles<D>::kSmem, sms};
+    return cudaSuccess;
+  }
+  if (p.B * p.H > 65535) return cudaErrorInvalidValue;
+  const long long m_blocks = (p.Sq + kBlockM - 1) / kBlockM;
+  const long long smem = ((kBlockM + 2 * kBlockN) * (D + 1) + kBlockM * (kBlockN + 1)) * 4;
+  w = {m_blocks, static_cast<long long>(p.B) * p.H, m_blocks * p.B * p.H, 256, smem, w.sms};
+  return cudaSuccess;
+}
+
 template <int D>
 cudaError_t launch_hopper(const Params& p, cudaStream_t stream) {
-  const long long n_work = static_cast<long long>(p.B) * p.H * ((p.Sq + kTileM - 1) / kTileM);
-  if (n_work > 0x7fffffff) return cudaErrorInvalidValue;
-  int device, sms;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
-          cudaSuccess) {
-    return err;
-  }
+  WorkGeometry wg;
+  cudaError_t err = work_geometry<D>(1, p, wg);
+  if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv, to;
   if ((err = make_map<D>(&tq, p.q, p.H, p.Sq, p.B, p.qsh, p.qss, p.qsb, 64)) != cudaSuccess ||
       (err = make_map<D>(&tk, p.k, p.KVH, p.Sk, p.B, p.ksh, p.kss, p.ksb, kTileN)) != cudaSuccess ||
@@ -806,26 +836,25 @@ cudaError_t launch_hopper(const Params& p, cudaStream_t stream) {
       (err = make_map<D>(&to, p.o, p.H, p.Sq, p.B, p.osh, p.oss, p.osb, 64)) != cudaSuccess) {
     return err;
   }
-  constexpr int smem = Tiles<D>::kSmem;
-  err = cudaFuncSetAttribute(flash_fwd_hopper<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(flash_fwd_hopper<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(wg.smem));
   if (err != cudaSuccess) return err;
-  // one CTA per SM (its shared memory admits no second), each walking items
-  const int grid = static_cast<int>(n_work < sms ? n_work : sms);
-  flash_fwd_hopper<D><<<grid, kThreads, smem, stream>>>(tq, tk, tv, to, p);
+  flash_fwd_hopper<D><<<static_cast<int>(wg.grid_x), kThreads, static_cast<size_t>(wg.smem),
+                        stream>>>(tq, tk, tv, to, p);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t dispatch(int dtype, const Params& p, cudaStream_t stream) {
   if (dtype == 1) return launch_hopper<D>(p, stream);
-  if (p.B * p.H > 65535) return cudaErrorInvalidValue;
-  const size_t smem = ((kBlockM + 2 * kBlockN) * (D + 1) + kBlockM * (kBlockN + 1)) * 4;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  WorkGeometry wg;
+  cudaError_t err = work_geometry<D>(0, p, wg);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + kBlockM - 1) / kBlockM, p.B * p.H);
-  flash_fwd_f32<D><<<grid, 256, smem, stream>>>(p);
+  err = cudaFuncSetAttribute(flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(wg.smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(wg.grid_x), static_cast<unsigned>(wg.grid_y));
+  flash_fwd_f32<D><<<grid, 256, static_cast<size_t>(wg.smem), stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -850,6 +879,32 @@ extern "C" int flash_attention_hopper_config(int D, int* out) {
     case 128: hopper_config<128>(out); return 0;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The launch flash_attention_launch would make, without launching: out =
+// {grid x, grid y, work items, threads, dynamic shared memory bytes, SM
+// count}.  Returns 0, or the cudaError_t the launch would return for a shape
+// it refuses.
+extern "C" int flash_attention_work_geometry_query(int B, int Sq, int Sk, int H, int KVH, int D,
+                                                   int dtype, long long* out) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 ||
+      (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p{};
+  p.B = B, p.Sq = Sq, p.Sk = Sk, p.H = H, p.KVH = KVH;
+  WorkGeometry w;
+  cudaError_t err;
+  switch (D) {
+    case 32: err = work_geometry<32>(dtype, p, w); break;
+    case 64: err = work_geometry<64>(dtype, p, w); break;
+    case 128: err = work_geometry<128>(dtype, p, w); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long v[6] = {w.grid_x, w.grid_y, w.items, w.threads, w.smem, w.sms};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
 }
 
 // dtype: 0 = f32, 1 = bf16.  Strides are in elements; the head dim is

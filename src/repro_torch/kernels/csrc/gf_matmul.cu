@@ -547,6 +547,37 @@ bool make_geometry(int G, int R, int K, long long B, int sms, Geometry& geo) {
   return true;
 }
 
+// Everything a launch decides on the host: the geometry, its dynamic shared
+// memory, the blocks per SM it admits and the grid.  The launcher and the
+// geometry query both call this, so what the checker is given is what runs;
+// kernels/gf_matmul.py::gf_matmul_geometry models it with the device's SM
+// count and blocks per SM as arguments.
+struct Launch {
+  Geometry geo;
+  long long smem;
+  int grid_x;
+  int per_sm;
+  int sms;
+};
+
+cudaError_t plan_launch(int G, int R, int K, long long B, Launch& l) {
+  if (G <= 0 || R <= 0 || K <= 0 || B <= 0 || G > 65535) return cudaErrorInvalidValue;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = device_sms(device, l.sms);
+  if (err != cudaSuccess) return err;
+  if (!make_geometry(G, R, K, B, l.sms, l.geo)) return cudaErrorInvalidValue;
+  l.smem = static_cast<long long>(l.geo.ring_bytes) + l.geo.acc_bytes + l.geo.list_bytes;
+  err = blocks_per_sm(device, l.smem, l.per_sm);
+  if (err != cudaSuccess) return err;
+  const long long items = l.geo.tiles * l.geo.passes;
+  const long long resident = static_cast<long long>(l.sms) * l.per_sm;
+  // G batches on blockIdx.y share the resident blocks in one wave
+  const long long want = resident / G > 0 ? resident / G : 1;
+  l.grid_x = static_cast<int>(items < want ? items : want);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // m (G, R, K), x (G, K, B), y (G, R, B): contiguous uint8 device buffers.
@@ -555,26 +586,28 @@ bool make_geometry(int G, int R, int K, long long B, int sms, Geometry& geo) {
 extern "C" int gf_matmul_launch(const void* m, const void* x, void* y, int G,
                                 int R, int K, long long B, int aligned,
                                 void* stream) {
-  if (G <= 0 || R <= 0 || K <= 0 || B <= 0 || G > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = device_sms(device, sms);
+  Launch l;
+  const cudaError_t err = plan_launch(G, R, K, B, l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Geometry geo;
-  if (!make_geometry(G, R, K, B, sms, geo)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = static_cast<long long>(geo.ring_bytes) + geo.acc_bytes + geo.list_bytes;
-  err = blocks_per_sm(device, smem, per_sm);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long items = geo.tiles * geo.passes;
-  const long long resident = static_cast<long long>(sms) * per_sm;
-  // G batches on blockIdx.y share the resident blocks in one wave
-  const long long want = resident / G > 0 ? resident / G : 1;
-  const int grid_x = static_cast<int>(items < want ? items : want);
-  gf_bitsliced_kernel<<<dim3(grid_x, G), kThreads, static_cast<size_t>(smem),
+  gf_bitsliced_kernel<<<dim3(l.grid_x, G), kThreads, static_cast<size_t>(l.smem),
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(m), static_cast<const uint8_t*>(x),
-      static_cast<uint8_t*>(y), R, K, B, aligned, geo);
+      static_cast<uint8_t*>(y), R, K, B, aligned, l.geo);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch a (G, R, K, B) product would get on the current device, without
+// launching: out = {wr, wc, tile_bytes, rows_per_pass, passes, chunk_rows,
+// chunks, ring_bytes, acc_bytes, list_bytes, tiles, grid_x, per_sm,
+// dynamic shared memory bytes, SM count}.  Returns 0 or the cudaError_t.
+extern "C" int gf_matmul_geometry_query(int G, int R, int K, long long B, long long* out) {
+  Launch l;
+  const cudaError_t err = plan_launch(G, R, K, B, l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Geometry& g = l.geo;
+  const long long v[15] = {g.wr,       g.wc,         g.tile_bytes, g.rows_per_pass, g.passes,
+                           g.chunk_rows, g.chunks,   g.ring_bytes, g.acc_bytes,     g.list_bytes,
+                           g.tiles,    l.grid_x,     l.per_sm,     l.smem,          l.sms};
+  for (int i = 0; i < 15; ++i) out[i] = v[i];
+  return 0;
 }

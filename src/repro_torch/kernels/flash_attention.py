@@ -28,9 +28,11 @@ it.  A fake tensor launches nothing and is not counted in ``launches``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
+import numpy as np
 import torch
 from torch._subclasses.fake_tensor import is_fake
 from torch.utils.flop_counter import register_flop_formula
@@ -118,6 +120,144 @@ def hopper_config(head_dim: int) -> dict[str, int]:
     return dict(zip(keys, out))
 
 
+# The f32 path's tiling (``kBlockM``/``kBlockN`` and ``dispatch`` in the
+# source): one block per (64 q rows, batch*head), 256 threads.
+F32_BLOCK_M, F32_BLOCK_N, F32_THREADS = 64, 64, 256
+MAX_GRID_Y = 65_535
+MAX_ITEMS = 2**31 - 1
+# the fields ``flash_attention_work_geometry_query`` returns, in order
+WORK_FIELDS = ("grid_x", "grid_y", "items", "threads", "smem", "sms")
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashWorkGeometry:
+    """One launch's grid and the work its blocks walk, for the checker
+    (``repro_torch.check.lowered.cuda``) to sweep without a card.
+
+    bf16 (``launch_hopper``): a persistent grid of ``min(items, sms)`` CTAs;
+    CTA ``x`` walks items ``x, x + grid_x, ..``, item ``w`` being q tile
+    ``m_tiles - 1 - w // (B*H)`` (128 rows from ``q0``) of batch*head ``w %
+    (B*H)``, its kv tiles walked last first, and each consumer warpgroup
+    storing its 64 rows by TMA, which clips rows past Sq.  f32
+    (``dispatch``): block ``(x, y)`` is q rows ``[64x, 64x + 64)`` of
+    batch*head ``y``, one item each.
+    """
+
+    b: int
+    sq: int
+    sk: int
+    h: int
+    kvh: int
+    d: int
+    causal: bool
+    bf16: bool
+    grid_x: int
+    grid_y: int
+    items: int
+    threads: int
+    smem: int
+    sms: int
+
+    def query_fields(self) -> dict[str, int]:
+        return {name: getattr(self, name) for name in WORK_FIELDS}
+
+    @property
+    def tile_m(self) -> int:
+        return TILE_M if self.bf16 else F32_BLOCK_M
+
+    @property
+    def tile_n(self) -> int:
+        return TILE_N if self.bf16 else F32_BLOCK_N
+
+    def block_items(self) -> tuple[np.ndarray, np.ndarray]:
+        """(block, item) of every item visit, in each block's order (a block
+        is its linear index ``x + grid_x * y``)."""
+        if not self.bf16:
+            item = np.arange(self.items, dtype=np.int64)
+            return item, item
+        bx = np.arange(self.grid_x, dtype=np.int64)
+        mine = np.where(bx < self.items, (self.items - 1 - bx) // max(self.grid_x, 1) + 1, 0)
+        blocks = np.repeat(bx, mine)
+        step = np.arange(len(blocks), dtype=np.int64) - np.repeat(np.cumsum(mine) - mine, mine)
+        return blocks, blocks + step * self.grid_x
+
+    def place(self, item: np.ndarray) -> dict[str, np.ndarray]:
+        """Item -> its batch ``b``, head ``h``, kv head ``kh``, first q row
+        ``q0`` and kv tiles ``n_tiles``."""
+        bh = self.b * self.h
+        if self.bf16:
+            m_tiles = -(-self.sq // TILE_M)
+            q0 = (m_tiles - 1 - item // bh) * TILE_M
+            head = item % bh
+        else:
+            q0 = (item % self.grid_x) * F32_BLOCK_M
+            head = item // self.grid_x
+        return {"b": head // self.h, "h": head % self.h,
+                "kh": (head % self.h) // (self.h // self.kvh), "q0": q0,
+                "n_tiles": self.kv_tiles(q0, self.tile_m)}
+
+    def kv_tiles(self, q0: np.ndarray, rows: int) -> np.ndarray:
+        """kv tiles the q rows [q0, q0 + rows) visit: with a causal mask,
+        none strictly above the diagonal of their last row."""
+        n = -(-self.sk // self.tile_n)
+        if not self.causal:
+            return np.full_like(q0, n)
+        return np.minimum(n, (np.minimum(q0 + rows, self.sq) - 1) // self.tile_n + 1)
+
+    def store_rows(self, q0: np.ndarray) -> list[tuple[np.ndarray, np.ndarray]]:
+        """The output rows [lo, hi) each writer of an item stores: bf16, the
+        two consumer warpgroups (64 rows each; one whose rows all lie past Sq
+        stores nothing), f32 the block's rows below Sq."""
+        writers = (0, 64) if self.bf16 else (0,)
+        out = []
+        for off in writers:
+            lo = q0 + off
+            out.append((lo, np.where(lo < self.sq, np.minimum(lo + 64, self.sq), lo)))
+        return out
+
+
+def flash_attention_work_geometry(b: int, sq: int, sk: int, h: int, kvh: int, d: int,
+                                  dtype: torch.dtype, sms: int, *,
+                                  causal: bool = True) -> FlashWorkGeometry:
+    """The launch ``flash_attention_launch`` makes for q (B, Sq, H, D) and
+    k/v (B, Sk, kvH, D) on a card of ``sms`` SMs: ``work_geometry`` of
+    csrc/flash_attention.cu, line for line.  Raises where the source
+    refuses the shape."""
+    if dtype not in _DTYPE_CODE or d not in HEAD_DIMS or min(b, sq, sk, h, kvh) <= 0 or h % kvh:
+        raise ValueError(f"the kernel refuses {(b, sq, sk, h, kvh, d)} in {dtype}")
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        n_work = b * h * -(-sq // TILE_M)
+        if n_work > MAX_ITEMS:
+            raise ValueError(f"{n_work} work items exceed the kernel's int index")
+        grid = (min(n_work, sms), 1)
+        threads, smem = THREADS, hopper_geometry(d)["smem_bytes"]
+    else:
+        if b * h > MAX_GRID_Y:
+            raise ValueError(f"B*H = {b * h} exceeds the grid's y limit {MAX_GRID_Y}")
+        grid = (-(-sq // F32_BLOCK_M), b * h)
+        n_work = grid[0] * grid[1]
+        threads = F32_THREADS
+        smem = ((F32_BLOCK_M + 2 * F32_BLOCK_N) * (d + 1) + F32_BLOCK_M * (F32_BLOCK_N + 1)) * 4
+    return FlashWorkGeometry(b=b, sq=sq, sk=sk, h=h, kvh=kvh, d=d, causal=causal, bf16=bf16,
+                             grid_x=grid[0], grid_y=grid[1], items=n_work, threads=threads,
+                             smem=smem, sms=sms)
+
+
+def work_geometry_query(lib: ctypes.CDLL, b: int, sq: int, sk: int, h: int, kvh: int, d: int,
+                        dtype: torch.dtype) -> dict[str, int]:
+    """What ``flash_attention_work_geometry_query`` of a built library
+    reports for a launch on the current card; raises if it refuses."""
+    fn = lib.flash_attention_work_geometry_query
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(WORK_FIELDS))()
+    err = fn(b, sq, sk, h, kvh, d, _DTYPE_CODE[dtype], ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_work_geometry_query failed: cudaError {err}")
+    return dict(zip(WORK_FIELDS, out))
+
+
 def rows_aligned(t: torch.Tensor) -> bool:
     """TMA reads a (B, S, heads, D) tensor whose base and byte strides are
     multiples of 16; the kernel's tensor maps take the strides as they are.
@@ -149,12 +289,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                 raise ValueError(f"{name} rows must be 16-byte aligned (strides {t.stride()})")
 
 
-def launch(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+def launch(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           out: torch.Tensor | None = None) -> torch.Tensor:
     """One launch of ``flash_attention_launch`` (``fn``, from a build of the
-    source) on CUDA tensors that ``_check`` has passed; raises if it fails."""
+    source) on CUDA tensors that ``_check`` has passed; raises if it fails.
+    ``out``, when given, is a (B, Sq, H, D) view of q's dtype with any
+    strides ``_check`` admits for q (the kernel takes the output's strides
+    as arguments); the kernel writes its rows and nothing else."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    elif (out.shape != q.shape or out.dtype != q.dtype or out.device != q.device
+          or out.stride(3) != 1 or not rows_aligned(out)):
+        raise ValueError(f"out must be a {tuple(q.shape)} {q.dtype} view on {q.device} with "
+                         f"16-byte aligned rows, got {tuple(out.shape)} strides {out.stride()}")
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -214,7 +214,8 @@ def _count_pairs(info) -> None:
     if obs.enabled():
         keep = info[3]
         obs.counter_add("moe.pairs.routed", keep.numel())
-        obs.counter_add("moe.pairs.dropped", int(keep.numel() - keep.sum()))
+        obs.counter_add("moe.pairs.dropped",
+                        int(keep.numel() - keep.sum()))  # check: ignore[host-read] tracing only
 
 
 def _moe_single(p: MoE, cfg: ArchConfig, x: torch.Tensor):

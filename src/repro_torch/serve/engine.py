@@ -59,7 +59,8 @@ class ServeEngine:
         over ``frames`` (B, encoder_seq, d), run over the engine's mesh where
         it has one."""
         frames = torch.as_tensor(frames, device=self.device)
-        with contextlib.ExitStack() as scope:
+        with obs.span("serve.encode", cat="serve", arch=self.cfg.name,
+                      batch=int(frames.shape[0])), contextlib.ExitStack() as scope:
             if self.mesh is not None:
                 scope.enter_context(use_mesh(self.mesh))
                 scope.enter_context(axis_rules(self.rules))

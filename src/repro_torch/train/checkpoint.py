@@ -129,7 +129,7 @@ def state_to_bytes(state: Any) -> tuple[torch.Tensor, list[dict]]:
     return torch.cat(chunks), leaf_meta(state)
 
 
-def bytes_to_state(buf: torch.Tensor, meta: list[dict], like: Any) -> Any:
+def bytes_to_state(buf: torch.Tensor, meta: list[dict], like: Any) -> Any:  # check: ignore[uninstrumented-entrypoint] pure converter
     """Inverse of :func:`state_to_bytes`; leaves land on ``buf``'s device,
     a ``Stack`` of ``like`` as a ``Stack`` of its layers."""
     leaves = []
@@ -196,7 +196,7 @@ class EncodedCheckpoint:
         return make_code(*self.code_spec)
 
 
-def checkpoint_from_arrays(
+def checkpoint_from_arrays(  # check: ignore[uninstrumented-entrypoint] pure converter
     code_spec: tuple[str, int, int, int],
     payloads: dict[int, np.ndarray],
     total_bytes: int,
@@ -451,7 +451,7 @@ class CheckpointManager:
                 json.dump(meta, f)
             self._gc()
 
-    def steps(self) -> list[int]:
+    def steps(self) -> list[int]:  # check: ignore[uninstrumented-entrypoint] directory scan
         out = []
         for name in os.listdir(self.dir):
             if name.startswith("step_") and os.path.exists(

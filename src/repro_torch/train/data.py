@@ -33,7 +33,7 @@ class SyntheticStream:
         self.data = data
         self.device = torch.device(device)
 
-    def batch_at(self, step: int) -> dict[str, torch.Tensor]:
+    def batch_at(self, step: int) -> dict[str, torch.Tensor]:  # check: ignore[uninstrumented-entrypoint] synthetic data
         rng = np.random.default_rng((self.data.seed << 20) ^ step)
         b, s = self.data.batch, self.data.seq
         v = self.cfg.vocab

@@ -103,10 +103,11 @@ def _local(x: torch.Tensor) -> torch.Tensor:
 
 # ``adamw_update`` walks a leaf of more elements than this along its first
 # axis, in slices of at least one row, so its f32 temporaries (about 20 bytes
-# an element) stay near 2.7 GB or one row, whichever is larger: a whole leaf
-# of grok-1's experts would need 32 GB of them.  The update is elementwise
-# after the global norm, so the slices give the same bits as the whole leaf.
-UPDATE_SLICE = 2**27
+# an element) stay near 0.7 GB or one row, whichever is larger: a whole leaf
+# of grok-1's experts would need 32 GB of them, and eight mesh ranks sharing
+# one card each hold their own.  The update is elementwise after the global
+# norm, so the slices give the same bits as the whole leaf.
+UPDATE_SLICE = 2**25
 
 
 def _leaf_slices(p: torch.Tensor):

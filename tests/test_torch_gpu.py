@@ -730,3 +730,77 @@ def test_moe_expert_products_gradient_on_card_matches_the_upcast_path(dev, arch,
         scale = float(b.float().abs().max())
         torch.testing.assert_close(a.float(), b.float(), rtol=0,
                                    atol=BF16_GRAD_RTOL * max(scale, 1e-30), msg=name)
+
+
+# ------------------------------------------------ the verification layer
+def test_kernel_geometry_queries_equal_the_checker_s_models(dev):
+    """At every shape of ``repro_torch.check``'s ``cuda-kernel`` sweep, the
+    launch the built kernels report (``..._geometry_query``) is the Python
+    model the checker sweeps, at this card's SM count and blocks per SM."""
+    from repro_torch.check.lowered import cuda as ccuda
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gf_matmul as gk
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, shape in ccuda.gf_sweep_shapes():
+        got = gk.geometry_query(build.load("gf_matmul"), *shape)
+        assert got["sms"] == sms, label
+        assert got == gk.gf_matmul_geometry(*shape, sms=sms, per_sm=got["per_sm"]).query_fields()
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    for label, dtype, (b, sq, sk, h, kvh, d, causal) in ccuda.flash_sweep_shapes():
+        got = fa.work_geometry_query(build.load("flash_attention"), b, sq, sk, h, kvh, d,
+                                     dtypes[dtype])
+        want = fa.flash_attention_work_geometry(b, sq, sk, h, kvh, d, dtypes[dtype], sms,
+                                                causal=causal)
+        assert got == want.query_fields(), label
+    with pytest.raises(RuntimeError):  # the f32 grid's y limit, refused as the launch is
+        fa.work_geometry_query(build.load("flash_attention"), 300, 8, 8, 256, 1, 64,
+                               torch.float32)
+
+
+@pytest.mark.parametrize("shape,offset", [((9, 5, 7, 333), 4097), ((1, 6, 12, 65_541), 4096),
+                                          ((1, 200, 8, 5_008), 4096), ((9, 5, 7, 336), 4096)])
+def test_gf_guard_band_launch(dev, shape, offset):
+    """The kernel writes its (G, R, B) view of a 0xA5-filled buffer and not
+    one byte around it, on the aligned and the unaligned path."""
+    from repro_torch.kernels import gf_matmul as gk
+
+    g, r, k, b = shape
+    rng = np.random.default_rng(g * r * k + b)
+    m = torch.from_numpy(_rand(rng, g, r, k)).to(dev)
+    x = torch.from_numpy(_rand(rng, g, k, b)).to(dev)
+    buf = torch.full((offset + g * r * b + 4096,), 0xA5, dtype=torch.uint8, device=dev)
+    out = buf[offset:offset + g * r * b].view(g, r, b)
+    gk.launch(gk._launch_fn(), m, x, out)
+    torch.cuda.synchronize()
+    assert bool((buf[:offset] == 0xA5).all()) and bool((buf[offset + g * r * b:] == 0xA5).all())
+    for i in range(g):
+        assert torch.equal(out[i], gf_matmul_table(m[i], x[i]))
+
+
+@pytest.mark.parametrize("shape,dtype,atol", [
+    ((2, 333, 517, 8, 2, 64, True), torch.bfloat16, 3e-2),
+    ((1, 100, 77, 4, 2, 128, True), torch.bfloat16, 3e-2),
+    ((2, 77, 130, 6, 3, 32, False), torch.float32, 3e-5)])
+def test_flash_guard_band_launch(dev, shape, dtype, atol):
+    """The kernel writes the rows of an output with padded strides (passed to
+    ``flash_attention_launch`` as they are) and leaves the NaN gaps alone."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, sk, h, kvh, d, causal = shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(sq + h)
+    q = torch.randn((b, sq, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, sk, kvh, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, sk, kvh, d), generator=g, device=dev).to(dtype)
+    full = torch.full((b, sq + 3, h + 1, d + 8), float("nan"), dtype=dtype, device=dev)
+    out = full[:, :sq, :h, :d]
+    before = fa.flash_attention.launches
+    fa.launch(fa._launch_fn(), q, k, v, causal, out=out)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before
+    gaps = torch.ones(full.shape, dtype=torch.bool, device=dev)
+    gaps[:, :sq, :h, :d] = False
+    assert bool(torch.isnan(full[gaps]).all())
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert float((out.float() - want.float()).abs().max()) <= atol

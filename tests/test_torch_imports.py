@@ -43,7 +43,12 @@ def test_port_modules_are_found():
                  "repro_torch.dist.mesh_collectives", "repro_torch.dist.model_run",
                  "repro_torch.dist.spawn", "repro_torch.dist.root_io",
                  "repro_torch.launch.dryrun", "repro_torch.launch.roofline_probe",
-                 "repro_torch.launch.buffers", "repro_torch.launch.orchestrate_dryrun"):
+                 "repro_torch.launch.buffers", "repro_torch.launch.orchestrate_dryrun",
+                 "repro_torch.check", "repro_torch.check.report", "repro_torch.check.plan",
+                 "repro_torch.check.ast_rules", "repro_torch.check.__main__",
+                 "repro_torch.check.lowered", "repro_torch.check.lowered.base",
+                 "repro_torch.check.lowered.spmd", "repro_torch.check.lowered.shard_rules",
+                 "repro_torch.check.lowered.cuda"):
         assert must in names
 
 
