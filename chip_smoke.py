@@ -169,7 +169,14 @@ drives the main path through the entry points a user calls, at the paper's
    the aligned and the unaligned path, flash into an output with padded
    strides whose gaps hold NaN), the guards untouched and the outputs equal
    to the plain versions.  At most ``CHECK_PHASE_S`` seconds, printed beside
-   the card's name and power limit.
+   the card's name and power limit;
+18. the traced layer (``phase_traced``): ``repro_torch.check.traced``'s
+   sweep (15 dispatch traces of the entry points on fake card tensors) and
+   its mutation self-test in this process; real card runs of the
+   checkpoint encode, the GF product and the xlstm serve step held equal op
+   by op to the fake captures; the host cost of a GF call through the
+   custom op ``repro_torch::gf_matmul`` against the bare launch.  At most
+   ``TRACED_PHASE_S`` seconds.
 
 The build prints ptxas's report of every kernel (registers, spills) and the
 bf16 flash kernel's geometry (tiles, stages, dynamic shared memory, the
@@ -177,8 +184,9 @@ registers ``setmaxnreg`` gives its producer and consumer warpgroups, and its
 TMA boxes), held equal to the wrapper's ``hopper_geometry``.  The
 GF kernel's launches are counted over phases 2-5 (``launches``, comparable
 with earlier runs) and per phase (``launches_by_phase``: 2-5, 7 summed over
-the ranks, 8, 9, 11g, 12, 14, 15), the flash kernel's over 6b-6c, 10a-e, 13
-and 15 (summed over the ranks; and over 9, 11 and 14, where it must be 0).  Any
+the ranks, 8, 9, 11g, 12, 14, 15, 16b, 18), the flash kernel's over 6b-6c,
+10a-e, 13 and 15 (summed over the ranks; and over 9, 11, 14 and 18, where it
+must be 0).  Any
 mismatch or exception exits non-zero.  The last three lines of standard
 output are the kernels JSON line, the card's name and power limit, and the
 result line.
@@ -413,15 +421,15 @@ MESH_LOSS_RTOL, MESH_NORM_RTOL = 0.01, 0.05
 # phase 15: the ssm, hybrid, vlm and audio families at their published
 # widths in bf16 over phase 13's mesh, in one spawn: (labels of the
 # prefill, train and decode runs, arch, layers).  Depth cut to make room for
-# phase 16 (published depths until PR 22): xlstm 4 of 12 blocks (3 mLSTM, 1
-# sLSTM), zamba2 12 of 38 Mamba2 layers (two calls of the shared block),
-# internvl2 8 of 24, whisper's decoder 4 of 12 (its encoder whole).  Prefill under ``tp`` on
+# phases 16 and 18: xlstm 4 of 12 blocks (3 mLSTM, 1 sLSTM), zamba2 6 of 38
+# Mamba2 layers (one call of the shared block), internvl2 8 of 24, whisper's
+# decoder 4 of 12 (its encoder whole).  Prefill under ``tp`` on
 # FAMILY_MESH_PREFILL positions a row (internvl2's 256 patches among them;
 # whisper's 1,500 frames and WHISPER_TEXT tokens), training under ``fsdp``
 # on FAMILY_MESH_TRAIN (whisper WHISPER_TEXT), ``remat="full"`` and each
 # config's AdamW state, decode under ``tp`` as 14c.  The sLSTM's time loop
 # runs whole on each rank (wh gathered once a block)
-FAMILY_MESH = [(("15a", "15e", "15i"), "xlstm-125m", 4), (("15b", "15f", "15j"), "zamba2-1.2b", 12),
+FAMILY_MESH = [(("15a", "15e", "15i"), "xlstm-125m", 4), (("15b", "15f", "15j"), "zamba2-1.2b", 6),
                (("15c", "15g", "15k"), "internvl2-1b", 8),
                (("15d", "15h", "15l"), "whisper-small", 4)]
 FAMILY_MESH_PREFILL = (2, 2048)
@@ -459,6 +467,13 @@ FLASH_GUARD = [((2, 333, 517, 8, 2, 64, True), torch.bfloat16),
                ((2, 77, 130, 6, 3, 32, False), torch.float32)]
 GUARD_PAD = (3, 1, 8)
 GUARD_BYTES = 4096
+# phase 18: the traced layer's sweep and self-test take seconds on the host;
+# the phase (sweep, self-test, the real card runs held to the fake captures,
+# the GF custom op's host cost) must stay within this
+TRACED_PHASE_S = 60.0
+# 18c: host-timed calls of each GF launch path a round, in turns
+OP_COST_CALLS = 50
+OP_COST_ROUNDS = 3
 
 
 def check(cond: bool, what: str) -> None:
@@ -2143,6 +2158,129 @@ def phase_check(smi: str) -> dict:
                          "flash_attention": all(r["guard_ok"] for r in flash_guard)}}
 
 
+def phase_traced(smi: str, spmd_ms: float) -> tuple[dict, int]:
+    """18: the traced layer on the card.  (a) ``repro_torch.check.traced``'s
+    sweep (15 dispatch traces of the port's entry points on fake card
+    tensors, the repair over every rank of a fake ``(pod, node)`` world) and
+    its self-test in this process: every record PASS, each of the 9
+    mutations caught by its owner alone; (b) real card runs of the
+    checkpoint encode, the GF product and the xlstm serve step at the sweep's
+    shapes, captured the same way and held equal op by op (name, dtypes,
+    shapes) to the sweep's fake captures, their results right (the GF bytes
+    equal to the plain version, the logits finite); (c) the host cost of one
+    GF call through the custom op ``repro_torch::gf_matmul`` and through the
+    wrapper against the bare ctypes launch, at phase 1's DRC(9,6,3)
+    NodeEncode shape, beside phase 3's ``spmd_repair`` ms.  Returns the
+    results and (b)'s GF launches."""
+    from repro_torch.check import traced
+    from repro_torch.check.traced import capture as tcap
+    from repro_torch.kernels import gf_matmul as gk
+
+    t0 = time.perf_counter()
+    programs = {p.name: p for p in traced.sweep_programs()}
+    records = [traced.record(p) for p in programs.values()]
+    base = programs["spmd_repair[DRC(6,4,3) failed=0]"]
+    rows = traced.self_test_traced(base)
+    sweep_s = time.perf_counter() - t0
+    kinds: dict[str, dict[str, int]] = {}
+    for rec in records:
+        row = kinds.setdefault(rec.kind, {})
+        row[rec.status] = row.get(rec.status, 0) + 1
+    cross = {rec.label: rec.info["traced_cross_bytes"] for rec in records
+             if "traced_cross_bytes" in rec.info}
+    print(f"[18a traced] {smi}: {json.dumps({'records': kinds, 'cross_bytes': cross, 'ops': {rec.label: rec.info['ops'] for rec in records}, 'sweep_and_self_test_s': sweep_s})}")
+    for rec in records:
+        for f in rec.findings:
+            print(f"[18a traced] FAIL {f.rule}: {f.message}")
+    check(len(records) == 15 and all(rec.status == "PASS" for rec in records),
+          f"18a: {[(rec.label, rec.status) for rec in records]}")
+    missed = [row[0] for row in rows if not (row[2] and row[3])]
+    check(len(rows) == 9 and not missed, f"18a: mutations not caught by their owner alone: "
+          f"{missed}")
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 18)
+    gf_matmul_batched.launches = 0
+    flash_before = flash_attention.launches
+    real = [tcap.capture_checkpoint_encode(fake=False, generator=gen),
+            tcap.capture_gf_cuda(fake=False, generator=gen),
+            tcap.capture_serve_decode(fake=False, generator=gen)]
+    torch.cuda.synchronize()
+    gf_launches = gf_matmul_batched.launches
+    check(gf_launches == 2, f"18b: {gf_launches} GF launches, not the encode's and the product's")
+    check(flash_attention.launches == flash_before, "18b launched the flash kernel")
+    same = {}
+    for p in real:
+        want, got = tcap.signature(programs[p.name]), tcap.signature(p)
+        first = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b),
+                     None if len(want) == len(got) else min(len(want), len(got)))
+        same[p.name] = {"ops": len(got), "equal": got == want}
+        check(got == want, f"18b: {p.name}: the card's run ({len(got)} ops) differs from the "
+              f"fake capture ({len(want)} ops) at op {first}: "
+              f"{got[first] if first is not None and first < len(got) else None} against "
+              f"{want[first] if first is not None and first < len(want) else None}")
+        rec = traced.record(p)
+        check(rec.status == "PASS", f"18b: {p.name}: {[f.message for f in rec.findings]}")
+    (coded,), stripe = real[0].meta["call"]
+    code = real[0].meta["code"]
+    ka = code.k * code.alpha
+    check(torch.equal(stripe[ka:], gf_matmul_table(code.generator[ka:], stripe[:ka])),
+          "18b: the encode's parity differs from the plain version")
+    (m, x), y = real[1].meta["call"]
+    check(torch.equal(y, gf_matmul_table(m, x)), "18b: the GF product differs from the plain "
+          "version")
+    _, (logits, _state) = real[2].meta["call"]
+    check(bool(torch.isfinite(logits.float()).all()), "18b: the serve step's logits not finite")
+    del real, coded, stripe, m, x, y, logits, _state
+    print(f"[18b real runs] {smi}: {json.dumps(same)}")
+
+    code = make_code("DRC", 9, 6, 3)
+    spec = plan_to_spmd(code, code.repair_plan(0))
+    sub = sub_bytes(code.alpha)
+    nm = torch.from_numpy(spec.node_mats).to(DEVICE)
+    xs = rand_bytes((code.n, code.alpha, sub), gen)
+    out = torch.empty((code.n, nm.shape[1], sub), dtype=torch.uint8, device=DEVICE)
+    fn = gk._launch_fn()
+    paths = {"bare_launch": lambda: gk.launch(fn, nm, xs, out),
+             "custom_op": lambda: torch.ops.repro_torch.gf_matmul(nm, xs, out),
+             "wrapper": lambda: gf_matmul_batched(nm, xs, out)}
+    host_us: dict[str, list[float]] = {name: [] for name in paths}
+    for call in paths.values():
+        call()
+    torch.cuda.synchronize()
+    for _ in range(OP_COST_ROUNDS):
+        for name, call in paths.items():
+            for _ in range(OP_COST_CALLS):
+                t = time.perf_counter()
+                call()
+                host_us[name].append((time.perf_counter() - t) * 1e6)
+            torch.cuda.synchronize()
+    gf_matmul_batched.launches = gf_launches  # the timing's launches are not the path's
+    check(torch.equal(out[0], gf_matmul_table(nm[0], xs[0])), "18c: NodeEncode differs")
+    med = {name: float(np.median(v)) for name, v in host_us.items()}
+    with tcap.fake_mode():
+        fake_x = torch.empty((code.n, code.alpha, 256), dtype=torch.uint8, device=DEVICE)
+        emulated = tcap.capture_call("spmd_repair", tcap.REPAIR,
+                                     lambda p: spmd_repair(code, 0, p)[0], (fake_x,),
+                                     fake=True)
+    per_repair = sum(op.name == "repro_torch.gf_matmul.default" for op in emulated.ops)
+    extra_us = per_repair * (med["custom_op"] - med["bare_launch"])
+    cost = {"shape": [code.n, int(nm.shape[1]), code.alpha, sub], "calls": OP_COST_CALLS,
+            "rounds": OP_COST_ROUNDS, "host_us_median": med,
+            "host_us_min": {name: float(min(v)) for name, v in host_us.items()},
+            "op_over_bare_us": med["custom_op"] - med["bare_launch"],
+            "gf_calls_per_spmd_repair": per_repair, "spmd_repair_ms": spmd_ms,
+            "op_share_of_spmd_repair": extra_us / 1e3 / spmd_ms}
+    print(f"[18c op cost] {smi}, host clock: {json.dumps(cost)}")
+    del nm, xs, out
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    print(f"[18 traced] {smi}: {phase_s:.1f} s")
+    check(phase_s <= TRACED_PHASE_S, f"18: {phase_s:.1f} s, over {TRACED_PHASE_S} s")
+    return {"records": kinds, "cross_bytes": cross, "sweep_s": sweep_s, "real_runs": same,
+            "op_cost": cost, "phase_s": phase_s}, gf_launches
+
+
 def ptxas_report(log: str) -> list[dict]:
     """ptxas's lines for each kernel of one build log: the (mangled) entry,
     its registers at entry, spill stores and loads, and static shared memory.
@@ -2373,6 +2511,9 @@ def main() -> int:
     check((gf_matmul_batched.launches, flash_attention.launches) == (gf_before, flash_before),
           "17 counted a launch of the main path's wrappers")
     phases["check"] = {"host_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    _, gf_launches_18 = phase_traced(smi, rep["DRC(9,6,3) node 0"]["spmd_ms"])
+    phases["traced"] = {"host_s": time.perf_counter() - t}
 
     head = k1["timings"][0]  # DRC(9,6,3) full-width parity encode
     kernels = {"kernels": [{
@@ -2384,7 +2525,8 @@ def main() -> int:
         "launches_by_phase": {"2-5": launches, "7": mesh_launches, "8": eval_launches,
                               "9": train_launches, "11g": ck11["gf_launches"],
                               "12": demo_launches, "14": gf_launches_14,
-                              "15": gf_launches_15, "16b (8 ranks)": pod_gf},
+                              "15": gf_launches_15, "16b (8 ranks)": pod_gf,
+                              "18": gf_launches_18},
         "max_abs_err": kc.max_abs_err,
         "mismatched_bytes": kc.mismatched,
         "ms": head["ms"],
@@ -2414,7 +2556,8 @@ def main() -> int:
                               "13 (8 ranks)": sharded_launches,
                               "14 (8 ranks)": mesh_launches_14,
                               "15 (8 ranks)": mesh_launches_15,
-                              "16a (8 ranks)": pod_flash, "16c (fake tensors)": 0},
+                              "16a (8 ranks)": pod_flash, "16c (fake tensors)": 0,
+                              "18": 0},
         "max_abs_err": fl["max_abs_err"],
         "rel_fro_err": fl["rel_fro_err"],
         "max_err_over_scale": fl["max_err_over_scale"],

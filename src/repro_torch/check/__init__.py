@@ -1,7 +1,7 @@
 """``repro_torch.check`` — static verification of the port's artifacts.
 
-The counterpart of ``repro.check`` (without its traced layer), over the
-port's own artifacts.  Three layers, all payload-free:
+The counterpart of ``repro.check``, over the port's own artifacts.  Four
+layers, all payload-free:
 
 * **Plan verifier** (`repro_torch.check.plan`) — proves every registered
   code's repair plans well-formed, symbolically decodable, bandwidth-
@@ -13,12 +13,18 @@ port's own artifacts.  Three layers, all payload-free:
   CUDA kernels' launch geometry and persistent work walk swept in interval
   arithmetic (in bounds, every output element written exactly once), plus
   a GF(2^8) dtype-safety AST pass over the Python GF paths.
+* **Traced-layer analyzer** (`repro_torch.check.traced`) — proves the
+  programs the port dispatches keep those guarantees: op traces of the
+  process-group repair over every rank, both GF paths, the serve and train
+  steps and the checkpoint encode, captured on fake card tensors, under a
+  uint8 taint lattice, collective conformance held to Eq. (3) and hot-path
+  hygiene (no host reads, outputs computed in place).
 * **AST linter** (`repro_torch.check.ast_rules`) — a dependency-free pass
   over the source tree catching the PyTorch pitfalls of this port (host
   syncs and host reads on the hot path, uint8 index tensors, kernels built
   at import time, leaked spans, mutable defaults, stale pragmas).
 
-``python -m repro_torch.check`` runs all three; ``--self-test`` runs the
+``python -m repro_torch.check`` runs all four; ``--self-test`` runs the
 mutation tests.  ``repro_torch.core.repair`` imports `PlanError` from
 ``repro_torch.check.errors`` at module load, so this ``__init__`` keeps
 everything except the error types lazy (PEP 562) to stay cycle-free.
@@ -34,7 +40,7 @@ __all__ = [
     "PlanError",
     # report model
     "FAIL", "PASS", "WARN", "CheckReport", "Finding", "LintRecord",
-    "LoweredRecord", "PlanRecord",
+    "LoweredRecord", "PlanRecord", "TracedRecord",
     # plan verifier
     "MUTATIONS", "PLAN_RULES", "REGISTRY_SWEEP", "mutate_plan",
     "run_registry_sweep", "self_test", "sweep_report", "verify_code",
@@ -42,6 +48,9 @@ __all__ = [
     # lowered-layer analyzer
     "LOWERED_MUTATIONS", "LOWERED_RULES", "LOWERED_SWEEP",
     "lowered_report", "run_lowered_sweep", "self_test_lowered",
+    # traced-layer analyzer
+    "TRACED_MUTATIONS", "TRACED_RULES", "run_traced_sweep", "self_test_traced",
+    "traced_report",
     # AST linter
     "ALL_LINT_RULES", "lint_file", "lint_paths", "lint_source", "lint_tree",
 ]
@@ -49,7 +58,7 @@ __all__ = [
 _LAZY = {
     "FAIL": "report", "PASS": "report", "WARN": "report",
     "CheckReport": "report", "Finding": "report", "LintRecord": "report",
-    "LoweredRecord": "report", "PlanRecord": "report",
+    "LoweredRecord": "report", "PlanRecord": "report", "TracedRecord": "report",
     "MUTATIONS": "plan", "PLAN_RULES": "plan", "REGISTRY_SWEEP": "plan",
     "mutate_plan": "plan", "run_registry_sweep": "plan", "self_test": "plan",
     "sweep_report": "plan", "verify_code": "plan", "verify_plan": "plan",
@@ -57,6 +66,9 @@ _LAZY = {
     "LOWERED_MUTATIONS": "lowered", "LOWERED_RULES": "lowered",
     "LOWERED_SWEEP": "lowered", "lowered_report": "lowered",
     "run_lowered_sweep": "lowered", "self_test_lowered": "lowered",
+    "TRACED_MUTATIONS": "traced", "TRACED_RULES": "traced",
+    "run_traced_sweep": "traced", "self_test_traced": "traced",
+    "traced_report": "traced",
     "ALL_LINT_RULES": "ast_rules", "lint_file": "ast_rules",
     "lint_paths": "ast_rules", "lint_source": "ast_rules",
     "lint_tree": "ast_rules",

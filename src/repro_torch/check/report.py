@@ -3,11 +3,10 @@
 One `Finding` per rule violation (or informational note), one record per
 verified artifact — a (code, failed-node) repair plan, a code-level
 structural check, a lowered artifact (SPMD schedule, sharding-rule table,
-CUDA kernel launch geometry or GF source), or a linted source file — and
-one `CheckReport` aggregating a whole run.  The JSON schema is the
-reference's (``repro.check.report``, version 3): the same keys, so one
-reader serves both packages' reports.  ``traced_records`` stays an empty
-list until the traced layer is ported.
+CUDA kernel launch geometry or GF source), a traced program, or a linted
+source file — and one `CheckReport` aggregating a whole run.  The JSON
+schema is the reference's (``repro.check.report``, version 3): the same
+keys, so one reader serves both packages' reports.
 """
 from __future__ import annotations
 
@@ -124,6 +123,37 @@ class LoweredRecord:
 
 
 @dataclass
+class TracedRecord:
+    """Verification outcome for one *traced* program.
+
+    The lowered layer analyzes declared artifacts; a traced record covers
+    the program the port actually dispatches — the op trace of one real
+    entry point (over every rank of its mesh), analyzed by the
+    ``repro_torch.check.traced`` dataflow rules.  ``kind`` is the program
+    class (``repair``, ``kernel``, ``hot-path``, ``checkpoint``); ``label``
+    names the capture, e.g. ``spmd_repair[DRC(6,4,3) failed=0]``.
+    """
+
+    label: str
+    kind: str
+    findings: list[Finding] = field(default_factory=list)
+    info: dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def status(self) -> str:
+        return _worst(self.findings)
+
+    def as_dict(self) -> dict[str, Any]:
+        return {
+            "label": self.label,
+            "kind": self.kind,
+            "status": self.status,
+            "findings": [f.as_dict() for f in self.findings],
+            "info": _jsonable(self.info),
+        }
+
+
+@dataclass
 class LintRecord:
     """AST-lint outcome for one source file."""
 
@@ -144,14 +174,17 @@ class LintRecord:
 
 @dataclass
 class CheckReport:
-    """Aggregate of one ``repro_torch.check`` run (plan + lowered sweeps + lint)."""
+    """Aggregate of one ``repro_torch.check`` run (plan, lowered and traced
+    sweeps + lint)."""
 
     plan_records: list[PlanRecord] = field(default_factory=list)
     lowered_records: list[LoweredRecord] = field(default_factory=list)
-    traced_records: list[Any] = field(default_factory=list)  # not ported yet: empty
+    traced_records: list[TracedRecord] = field(default_factory=list)
     lint_records: list[LintRecord] = field(default_factory=list)
 
-    def _all_records(self) -> tuple[PlanRecord | LoweredRecord | LintRecord, ...]:
+    def _all_records(
+        self,
+    ) -> tuple[PlanRecord | LoweredRecord | TracedRecord | LintRecord, ...]:
         return (
             *self.plan_records,
             *self.lowered_records,

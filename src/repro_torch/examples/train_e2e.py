@@ -20,7 +20,9 @@ import argparse
 import dataclasses
 import math
 import os
+import statistics
 import tempfile
+import time
 
 import torch
 
@@ -66,14 +68,17 @@ def run(args, ckpt_dir: str) -> dict:
     step_fn = make_train_step(cfg, tcfg)
 
     losses = []
+    step_s = []  # host clock of each step; reading its loss waits for the device
     saved = {}  # step -> the serialized state that was checkpointed
     crash_at = args.steps // 2
     crashed = False
     result = {}
     step = 0
     while step < args.steps:
+        t = time.perf_counter()
         model, opt, m = step_fn(model, opt, stream.batch_at(step), step)
         losses.append(m["loss"].item())
+        step_s.append(time.perf_counter() - t)
         if step % 10 == 0:
             print(f"[e2e] step={step:3d} loss={losses[-1]:.4f}")
         step += 1
@@ -88,21 +93,30 @@ def run(args, ckpt_dir: str) -> dict:
             print(f"[e2e] killed checkpoint shard node_2 of step {last}; "
                   f"restarting from the damaged checkpoint")
             live = train_state(model, opt)
+            t = time.perf_counter()
             restored, step, report = mgr.load(live)
             copy_state_(live, restored)
             del restored
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            restore_s = time.perf_counter() - t
             equal = torch.equal(state_to_bytes(live)[0], saved[step])
             result = {"restored_step": step, "mode": report.mode,
-                      "cross_rack_blocks": report.cross_rack_blocks, "byte_equal": equal}
+                      "cross_rack_blocks": report.cross_rack_blocks, "byte_equal": equal,
+                      "restore_s": restore_s}
             print(f"[e2e] restored via {report.mode} "
-                  f"(cross-rack={report.cross_rack_blocks:.1f} blocks, byte-equal={equal}); "
-                  f"resuming at step {step}")
+                  f"(cross-rack={report.cross_rack_blocks:.1f} blocks, byte-equal={equal}) "
+                  f"in {restore_s:.3f} s; resuming at step {step}")
     if not all(math.isfinite(x) for x in losses):
         raise RuntimeError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"loss did not improve: {losses[0]:.4f} -> {losses[-1]:.4f}")
-    print(f"[e2e] done: loss {losses[0]:.4f} -> {losses[-1]:.4f} OK")
-    return {"losses": losses, **result}
+    # the median step, the first (warm-up) one left out
+    step_ms = statistics.median(step_s[1:] or step_s) * 1e3
+    tokens_per_s = args.batch * args.seq / (step_ms / 1e3)
+    print(f"[e2e] done: loss {losses[0]:.4f} -> {losses[-1]:.4f} OK; median step "
+          f"{step_ms:.3f} ms (host clock), {tokens_per_s:.0f} tokens/s")
+    return {"losses": losses, "step_ms": step_ms, "tokens_per_s": tokens_per_s, **result}
 
 
 def main(argv=None) -> dict:

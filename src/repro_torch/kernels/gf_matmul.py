@@ -18,7 +18,10 @@ small-K products, several times it at the MSR(9,6,3) encode.
 
 On a CPU tensor the wrapper runs the plain version,
 ``repro_torch.core.gf_torch.gf_matmul_table``; on a CUDA tensor it launches
-the kernel or raises.
+the kernel or raises.  The launch is the custom op ``repro_torch::gf_matmul``
+(it writes ``out`` in place), so a dispatch mode sees the product as one op
+and a fake tensor takes its fake kernel, which launches nothing: the traced
+layer (``repro_torch.check.traced``) captures the program the card runs.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import functools
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core.gf_torch import gf_matmul_table
 
@@ -240,13 +244,25 @@ def launch(fn, m: torch.Tensor, x: torch.Tensor, out: torch.Tensor) -> torch.Ten
     return out
 
 
+@torch.library.custom_op("repro_torch::gf_matmul", mutates_args=("out",), device_types="cuda")
+def _gf_op(m: torch.Tensor, x: torch.Tensor, out: torch.Tensor) -> None:
+    launch(_launch_fn(), m, x, out)
+
+
+@_gf_op.register_fake
+def _gf_fake(m: torch.Tensor, x: torch.Tensor, out: torch.Tensor) -> None:
+    return None
+
+
 def gf_matmul_batched(
     m: torch.Tensor, x: torch.Tensor, out: torch.Tensor | None = None
 ) -> torch.Tensor:
     """G independent GF(256) products: m (G,R,K) x x (G,K,B) -> (G,R,B) uint8.
 
     ``out``, when given, is written in place (it may be a contiguous view
-    into a larger buffer, e.g. a stripe's parity rows).
+    into a larger buffer, e.g. a stripe's parity rows).  A CUDA tensor takes
+    the custom op ``repro_torch::gf_matmul``; a fake one launches nothing and
+    is not counted.
     """
     _check(m, x, out)
     g, r, k = m.shape
@@ -263,8 +279,9 @@ def gf_matmul_batched(
         return out
     if k == 0:
         return out.zero_()
-    launch(_launch_fn(), m, x, out)
-    gf_matmul_batched.launches += 1
+    torch.ops.repro_torch.gf_matmul(m, x, out)
+    if not is_fake(x):
+        gf_matmul_batched.launches += 1
     return out
 
 

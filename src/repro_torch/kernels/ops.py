@@ -4,7 +4,8 @@
 and the checkpoint encode.  It
 
 * moves the plan-time GF(256) matrix (numpy) to the payload's device, cached
-  by content,
+  by content (not for a fake payload: a fake tensor must not outlive its
+  mode),
 * launches the CUDA kernel on a CUDA payload (every call; the kernel masks
   its own ragged edge), or runs the plain table version on a CPU payload.
 
@@ -20,6 +21,7 @@ import time
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch import obs
 from repro_torch.core import gf as _gf
@@ -42,17 +44,20 @@ def bit_expand(m: np.ndarray) -> np.ndarray:
     return _bitmatrix_cached(m.tobytes(), m.shape)
 
 
-@functools.lru_cache(maxsize=4096)
-def _matrix_cached(key: bytes, shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
+def _matrix(key: bytes, shape: tuple[int, ...], device: torch.device) -> torch.Tensor:
     host = torch.frombuffer(bytearray(key), dtype=torch.uint8).reshape(shape)
     return host.to(device)
 
 
-def _device_matrix(m: np.ndarray | torch.Tensor, device: torch.device) -> torch.Tensor:
+_matrix_cached = functools.lru_cache(maxsize=4096)(_matrix)
+
+
+def _device_matrix(m: np.ndarray | torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if isinstance(m, torch.Tensor):
-        return m.to(device=device, dtype=torch.uint8).contiguous()
+        return m.to(device=x.device, dtype=torch.uint8).contiguous()
     m = np.ascontiguousarray(np.asarray(m, dtype=np.uint8))
-    return _matrix_cached(m.tobytes(), m.shape, device)
+    load = _matrix if is_fake(x) else _matrix_cached
+    return load(m.tobytes(), m.shape, x.device)
 
 
 def gf_matmul(
@@ -65,7 +70,7 @@ def gf_matmul(
     """
     if x.dtype != torch.uint8 or x.ndim != 2:
         raise ValueError(f"payload must be 2-D uint8, got {x.dtype} {tuple(x.shape)}")
-    mt = _device_matrix(m, x.device)
+    mt = _device_matrix(m, x)
     if mt.ndim != 2 or mt.shape[1] != x.shape[0]:
         raise ValueError(f"payload {tuple(x.shape)} does not match matrix {tuple(mt.shape)}")
     y = _traced(mt[None], x.contiguous()[None], None if out is None else out[None])
@@ -76,7 +81,7 @@ def gf_matmul_batched(
     m: np.ndarray | torch.Tensor, x: torch.Tensor, *, out: torch.Tensor | None = None
 ) -> torch.Tensor:
     """G products in one launch: (G, R, K) @ (G, K, B) -> (G, R, B) uint8."""
-    mt = _device_matrix(m, x.device)
+    mt = _device_matrix(m, x)
     return _traced(mt, x.contiguous(), out)
 
 

@@ -39,6 +39,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch import obs
 from repro_torch.core.code_base import ErasureCode
@@ -251,7 +252,8 @@ def make_encode_step(
         ops.gf_matmul(gen_parity, coded[:ka], out=coded[ka:])
         return coded
 
-    _ENCODE_STEPS[key] = encode
+    if not is_fake(gen_parity):  # a fake matrix must not outlive its mode
+        _ENCODE_STEPS[key] = encode
     return encode
 
 

@@ -244,14 +244,15 @@ def test_cli_gates_meets_its_baseline_and_writes_the_report(tmp_path):
     families = [r["family"] for r in report["lowered_records"]]
     assert families.count("spmd-schedule") == 46 and families.count("shard-rules") == 50
     assert families.count("cuda-kernel") >= 12
-    assert report["summary"]["FAIL"] == 0 and report["traced_records"] == []
+    assert report["summary"]["FAIL"] == 0
+    assert [r["status"] for r in report["traced_records"]] == ["PASS"] * 15
     assert any(r["path"].endswith("chip_smoke.py") for r in report["lint_records"])
 
 
 def test_cli_self_test_passes():
     proc = _cli("--self-test")
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    assert "self-test OK: 21/21" in proc.stdout
+    assert "self-test OK: 30/30" in proc.stdout
 
 
 def test_baseline_regression_fails(tmp_path, capsys):

@@ -140,6 +140,28 @@ def test_batched_cpu_path_runs_plain_version_and_counts_no_launch():
         np.testing.assert_array_equal(got[g], rgf.gf_matmul(m[g], x[g]))
 
 
+def test_custom_op_on_fake_card_tensors_returns_fake_output_and_launches_nothing():
+    """``repro_torch::gf_matmul`` on fake ``cuda`` tensors: the wrapper takes
+    the custom op's fake kernel, returns a fake (G, R, B) uint8 output on the
+    card and counts no launch."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    from repro_torch.check.traced.capture import fake_cuda, fake_mode
+
+    before = gf_matmul_batched.launches
+    with fake_cuda(), fake_mode():
+        m = torch.empty((9, 4, 3), dtype=torch.uint8, device="cuda")
+        x = torch.empty((9, 3, 200), dtype=torch.uint8, device="cuda")
+        y = gf_matmul_batched(m, x)
+        z = ops.gf_matmul(np.ones((4, 3), dtype=np.uint8), x[0])
+    assert is_fake(y) and is_fake(z)
+    assert (tuple(y.shape), y.dtype, y.device.type) == ((9, 4, 200), torch.uint8, "cuda")
+    assert (tuple(z.shape), z.dtype) == ((4, 200), torch.uint8)
+    assert gf_matmul_batched.launches == before
+    schema = str(torch.ops.repro_torch.gf_matmul.default._schema)
+    assert schema == "repro_torch::gf_matmul(Tensor m, Tensor x, Tensor(a2!) out) -> ()"
+
+
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "out"])
 def test_wrapper_rejects_bad_inputs(bad):
     m = torch.zeros((2, 3, 4), dtype=torch.uint8)

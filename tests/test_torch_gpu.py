@@ -89,6 +89,28 @@ def test_kernel_batched_into_unaligned_view(dev, g, r, k, b):
     assert not bool(out[0].any())
 
 
+def test_kernel_goes_through_the_custom_op(dev):
+    """Every GF launch of the wrappers is the custom op ``repro_torch::gf_matmul``:
+    a dispatch mode sees it, the kernel's bytes equal the plain version's and
+    the launch counter moves once a call."""
+    from repro_torch.check.traced.capture import Capture
+
+    rng = np.random.default_rng(21)
+    m = torch.from_numpy(_rand(rng, 9, 9, 27)).to(dev)
+    x = torch.from_numpy(_rand(rng, 9, 27, 4099)).to(dev)
+    before = gf_matmul_batched.launches
+    cap = Capture()
+    with cap:
+        got = gf_matmul_batched(m, x)
+    assert [op.name for op in cap.ops].count("repro_torch.gf_matmul.default") == 1
+    assert gf_matmul_batched.launches == before + 1
+    for i in range(9):
+        assert torch.equal(got[i], gf_matmul_table(m[i], x[i]))
+    out = torch.empty_like(got)
+    torch.ops.repro_torch.gf_matmul(m, x, out)
+    assert torch.equal(out, got) and gf_matmul_batched.launches == before + 1
+
+
 @pytest.mark.parametrize("fill", [0, 1, 0xFF])
 def test_kernel_constant_matrices(dev, fill):
     """All-zero (every nibble skipped), identity-like 1 and 0xFF (every

@@ -48,7 +48,11 @@ def test_port_modules_are_found():
                  "repro_torch.check.ast_rules", "repro_torch.check.__main__",
                  "repro_torch.check.lowered", "repro_torch.check.lowered.base",
                  "repro_torch.check.lowered.spmd", "repro_torch.check.lowered.shard_rules",
-                 "repro_torch.check.lowered.cuda"):
+                 "repro_torch.check.lowered.cuda", "repro_torch.check.traced",
+                 "repro_torch.check.traced.base", "repro_torch.check.traced.capture",
+                 "repro_torch.check.traced.dtype_flow",
+                 "repro_torch.check.traced.collectives",
+                 "repro_torch.check.traced.hygiene"):
         assert must in names
 
 
