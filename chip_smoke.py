@@ -1965,48 +1965,46 @@ def phase_pod(smi: str) -> tuple[dict, int, int]:
 def phase_dryrun(smi: str) -> dict:
     """16c: ``dryrun.run_cell`` of each ``DRYRUN_CELLS`` cell and the
     roofline probe of ``PROBE_CELL``, fake card tensors on a fake group in
-    this process (nothing is allocated or launched), the process group torn
-    down after.  Checks: every cell ``ok``, the multi-pod peak no more than
-    the single-pod one, the flash kernel's custom op counted in the prefill
-    (its FLOP formula), the probe's useful FLOP share finite and positive
-    (printed beside the reference's band)."""
+    this process (nothing is allocated or launched), each cell in a group
+    of its own that ``launch.mesh.fake_world`` makes and takes down.
+    Checks: every cell ``ok``, the multi-pod peak no more than the
+    single-pod one, the flash kernel's custom op counted in the prefill (its
+    FLOP formula), the probe's useful FLOP share finite and positive
+    (printed beside the reference's band), no process group left."""
     import torch.distributed as dist
 
     from repro_torch.launch import dryrun, roofline_probe
 
     out = {}
-    try:
-        for arch, shape, multi in DRYRUN_CELLS:
-            t = time.perf_counter()
-            res = dryrun.run_cell(arch, shape, multi_pod=multi, rules_mode="tp",
-                                  device=DEVICE, verbose=False)
-            res["host_s"] = time.perf_counter() - t
-            out[f"{shape} {res['mesh']}"] = res
-            shown = {k: res.get(k) for k in ("arch", "shape", "mesh", "rules", "status",
-                                              "n_devices", "memory", "roofline", "flops_by_op",
-                                              "collectives", "host_s")}
-            print(f"[16c dryrun] host {smi}, computed from the H100 data sheet's rates, not "
-                  f"measured: {json.dumps(shown)}")
-            check(res["status"] == "ok", f"16c: {arch} {shape} {res['mesh']}: {res['status']}")
-            check(res["flops_by_op"].get("repro_torch.flash_attention", 0) > 0,
-                  f"16c: the flash op was not counted: {res['flops_by_op']}")
-        single, multi = (out[f"{DRYRUN_CELLS[0][1]} {m}"]["memory"]["per_device_total_gib"]
-                         for m in ("single", "multi"))
-        check(multi <= single, f"16c: multi-pod {multi} GiB against single-pod {single}")
-        arch, shape, multi_pod = PROBE_CELL
+    for arch, shape, multi in DRYRUN_CELLS:
         t = time.perf_counter()
-        probe = roofline_probe.probe_cell(arch, shape, multi_pod=multi_pod, device=DEVICE)
-        probe["host_s"] = time.perf_counter() - t
-        ratio = probe["roofline"]["useful_flops_ratio"]
-        lo, hi = REFERENCE_USEFUL_BAND
-        probe["in_reference_band"] = lo <= ratio <= hi
-        out["probe"] = probe
-        print(f"[16c probe] host {smi}, computed from the H100 data sheet's rates, not "
-              f"measured: {json.dumps(probe)}")
-        check(math.isfinite(ratio) and ratio > 0, f"16c: useful FLOP share {ratio}")
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        res = dryrun.run_cell(arch, shape, multi_pod=multi, rules_mode="tp",
+                              device=DEVICE, verbose=False)
+        res["host_s"] = time.perf_counter() - t
+        out[f"{shape} {res['mesh']}"] = res
+        shown = {k: res.get(k) for k in ("arch", "shape", "mesh", "rules", "status",
+                                          "n_devices", "memory", "roofline", "flops_by_op",
+                                          "collectives", "host_s")}
+        print(f"[16c dryrun] host {smi}, computed from the H100 data sheet's rates, not "
+              f"measured: {json.dumps(shown)}")
+        check(res["status"] == "ok", f"16c: {arch} {shape} {res['mesh']}: {res['status']}")
+        check(res["flops_by_op"].get("repro_torch.flash_attention", 0) > 0,
+              f"16c: the flash op was not counted: {res['flops_by_op']}")
+    single, multi = (out[f"{DRYRUN_CELLS[0][1]} {m}"]["memory"]["per_device_total_gib"]
+                     for m in ("single", "multi"))
+    check(multi <= single, f"16c: multi-pod {multi} GiB against single-pod {single}")
+    arch, shape, multi_pod = PROBE_CELL
+    t = time.perf_counter()
+    probe = roofline_probe.probe_cell(arch, shape, multi_pod=multi_pod, device=DEVICE)
+    probe["host_s"] = time.perf_counter() - t
+    ratio = probe["roofline"]["useful_flops_ratio"]
+    lo, hi = REFERENCE_USEFUL_BAND
+    probe["in_reference_band"] = lo <= ratio <= hi
+    out["probe"] = probe
+    print(f"[16c probe] host {smi}, computed from the H100 data sheet's rates, not "
+          f"measured: {json.dumps(probe)}")
+    check(math.isfinite(ratio) and ratio > 0, f"16c: useful FLOP share {ratio}")
+    check(not dist.is_initialized(), "16c left a process group behind")
     return out
 
 

@@ -34,7 +34,7 @@ PyTorch built without CUDA, :func:`fake_cuda` lends the CUDA device guard a
 no-op (``csrc/fake_cuda_guard.cpp``) while a capture runs, without which a
 fake card tensor cannot be indexed.  A program over a mesh runs rank by rank
 in one process, each rank in its own ``fake`` process group
-(:func:`fake_world`), which refuses to start beside any other group.
+(``launch.mesh.fake_world``), which refuses to start beside any other group.
 """
 from __future__ import annotations
 
@@ -60,6 +60,8 @@ from torch._subclasses.fake_tensor import (
 )
 from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 from torch.utils._pytree import tree_leaves
+
+from repro_torch.launch.mesh import fake_world
 
 REPAIR = "repair"
 KERNEL = "kernel"
@@ -384,26 +386,6 @@ def fake_cuda() -> Iterator[None]:
     finally:
         if installed:
             lib.fake_cuda_guard_remove()
-
-
-@contextlib.contextmanager
-def fake_world(n: int, rank: int) -> Iterator[None]:
-    """A ``fake`` default process group of ``n`` ranks with this process as
-    ``rank`` (collectives return at once and move nothing).  Refuses to start
-    while any default group exists, and on exit destroys only what it made
-    (the group and the subgroups made under it)."""
-    if dist.is_initialized():
-        raise RuntimeError(
-            f"a traced capture needs its own fake process group, but a "
-            f"{dist.get_backend()!r} group of {dist.get_world_size()} ranks exists: "
-            f"capture before it is made or after it is destroyed")
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-
-    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=n)
-    try:
-        yield
-    finally:
-        dist.destroy_process_group()
 
 
 def fake_mode() -> FakeTensorMode:

@@ -45,7 +45,6 @@ import weakref
 from typing import Any
 
 import torch
-import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
@@ -66,6 +65,7 @@ from repro_torch.launch.mesh import (
     HBM_BW,
     HBM_BYTES,
     PEAK_FLOPS_BF16,
+    fake_world,
     make_model_mesh,
     make_production_mesh,
 )
@@ -88,18 +88,6 @@ def model_flops_global(cfg: ArchConfig, shape: ShapeConfig, kind: str) -> float:
     if kind == "prefill":
         return 2.0 * n_active * shape.tokens
     return 2.0 * n_active * shape.global_batch  # decode: one new token
-
-
-def fake_world(n: int) -> None:
-    """Make the default process group a ``fake`` one of ``n`` ranks, this
-    process rank 0 (collectives return at once and move nothing)."""
-    if dist.is_initialized():
-        if dist.get_backend() == "fake" and dist.get_world_size() == n:
-            return
-        dist.destroy_process_group()
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -305,28 +293,31 @@ def measure_cell(cfg: ArchConfig, shape: ShapeConfig, *, multi_pod: bool, rules_
                  buffers: bool = False, mesh_shape: tuple | None = None) -> dict:
     """Build the cell and run its step under a :class:`Meter`: the counts,
     the argument and peak bytes, the host seconds.  ``mesh_shape`` replaces
-    the production mesh (tests)."""
+    the production mesh (tests).  The whole cell runs inside its own
+    ``fake`` process group (``launch.mesh.fake_world``), which refuses to
+    start beside any other and is gone on return: what comes back is
+    numbers and the :class:`Meter`."""
     rules = make_rules(rules_mode, multi_pod=multi_pod)
-    if mesh_shape is None:
-        fake_world(512 if multi_pod else 256)
-        mesh = make_production_mesh(multi_pod=multi_pod, device_type=device)
-    else:
-        fake_world(math.prod(mesh_shape))
-        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-        mesh = make_model_mesh(mesh_shape, axes, device_type=device)
-    t0 = time.perf_counter()
-    with FakeTensorMode(allow_non_fake_inputs=True) as fake_mode:
-        cell = build_cell(cfg, shape, mesh, rules, tcfg, device)
-        args = cell.argument_bytes(mesh, rules)
-        build_s = time.perf_counter() - t0
-        with Meter(fake_mode, buffers=buffers) as meter:
-            out = run_step(cell, cfg, shape, tcfg, mesh, rules, device, attn_chunk)
-            outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
-            out_bytes = sum(_nbytes(_local(t)) for t in outs)
-        del out, outs
-    return {"n_devices": mesh.size(), "argument_bytes": args, "peak_bytes": args + meter.peak,
-            "output_bytes": out_bytes, "meter": meter, "build_s": build_s,
-            "step_s": time.perf_counter() - t0 - build_s}
+    world = math.prod(mesh_shape) if mesh_shape else (512 if multi_pod else 256)
+    with fake_world(world, 0):
+        if mesh_shape is None:
+            mesh = make_production_mesh(multi_pod=multi_pod, device_type=device)
+        else:
+            axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+            mesh = make_model_mesh(mesh_shape, axes, device_type=device)
+        t0 = time.perf_counter()
+        with FakeTensorMode(allow_non_fake_inputs=True) as fake_mode:
+            cell = build_cell(cfg, shape, mesh, rules, tcfg, device)
+            args = cell.argument_bytes(mesh, rules)
+            build_s = time.perf_counter() - t0
+            with Meter(fake_mode, buffers=buffers) as meter:
+                out = run_step(cell, cfg, shape, tcfg, mesh, rules, device, attn_chunk)
+                outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+                out_bytes = sum(_nbytes(_local(t)) for t in outs)
+            del out, outs
+        step_s = time.perf_counter() - t0 - build_s
+    return {"n_devices": world, "argument_bytes": args, "peak_bytes": args + meter.peak,
+            "output_bytes": out_bytes, "meter": meter, "build_s": build_s, "step_s": step_s}
 
 
 def roofline(flops: float, hbm_bytes: float, coll_bytes: float, model_flops: float) -> dict:

@@ -11,6 +11,10 @@
   shapes, ``(16, 16)`` ``("data", "model")`` or, with ``multi_pod``, ``(2,
   16, 16)`` ``("pod", "data", "model")`` (the pod axis is the paper's rack),
   over a process group of that size (the dry run's ``fake`` one).
+* ``fake_world``: a ``fake`` default process group of n ranks for as long
+  as a ``with`` block runs, for the dry run and the traced captures, which
+  lay meshes of hundreds of ranks out in one process.  It refuses to start
+  beside any default group and on exit destroys only what it made.
 
 The roofline constants below are an H100 SXM 80 GB's data sheet values, not
 measurements: the dry run's compute, memory and collective terms divide its
@@ -21,8 +25,32 @@ process group.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+
+@contextlib.contextmanager
+def fake_world(n: int, rank: int) -> Iterator[None]:
+    """A ``fake`` default process group of ``n`` ranks with this process as
+    ``rank`` (collectives return at once and move nothing).  Refuses to start
+    while any default group exists, and on exit destroys only what it made
+    (the group and the subgroups made under it, a mesh's among them: a mesh
+    made inside the block is not used after it)."""
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"a fake process group of {n} ranks needs its own default group, but a "
+            f"{dist.get_backend()!r} group of {dist.get_world_size()} ranks exists: "
+            f"make it before that group or after it is destroyed")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_repair_mesh(r: int, w: int, *, device_type: str = "cuda") -> DeviceMesh:

@@ -37,6 +37,7 @@ from repro_torch.core.codes import make_code
 from repro_torch.core.gf_torch import gf_matmul_table
 from repro_torch.kernels import ops
 from repro_torch.kernels.gf_matmul import gf_matmul_batched
+from torch_groups import no_process_group_left  # noqa: F401  (autouse)
 
 try:
     from hypothesis import given, settings, strategies as st

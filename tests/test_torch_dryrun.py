@@ -35,17 +35,9 @@ from repro_torch import configs as tconfigs
 from repro_torch.launch import dryrun, orchestrate_dryrun
 from repro_torch.launch import train as launch_train
 from repro_torch.models.config import SHAPES, ShapeConfig
+from torch_groups import no_process_group_left  # noqa: F401  (autouse)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-
-@pytest.fixture(autouse=True)
-def no_process_group_left():
-    """The dry run makes the default process group a ``fake`` one; take it
-    down after each test, so other test modules in this worker can make
-    their own."""
-    yield
-    if torch.distributed.is_initialized():
-        torch.distributed.destroy_process_group()
 
 CELLS = [(arch, shape) for arch in tconfigs.ARCHS
          for shape in tconfigs.applicable_shapes(tconfigs.get_config(arch))]
@@ -73,23 +65,66 @@ def test_meter_counts_rank0_local_work_by_hand():
     from torch.distributed.tensor import Replicate, Shard
 
     from repro_torch.dist.sharding import shard_tensor
-    from repro_torch.launch.mesh import make_model_mesh
+    from repro_torch.launch.mesh import fake_world, make_model_mesh
 
     b, s, d, f = 2, 8, 16, 32
-    dryrun.fake_world(4)
-    mesh = make_model_mesh((1, 4), device_type="cpu")
-    with FakeTensorMode() as fake:
-        x = shard_tensor(torch.empty(b, s, d), mesh, (None, None, None))
-        w1 = shard_tensor(torch.empty(d, f), mesh, (None, "model"))
-        w2 = shard_tensor(torch.empty(f, d), mesh, ("model", None))
-        with dryrun.Meter(fake) as meter:
-            h = x @ w1
-            assert h.placements[1] == Shard(2)
-            y = (h @ w2).redistribute(mesh, [Replicate(), Replicate()])
-            assert tuple(y.to_local().shape) == (b, s, d)
+    with fake_world(4, 0):
+        mesh = make_model_mesh((1, 4), device_type="cpu")
+        with FakeTensorMode() as fake:
+            x = shard_tensor(torch.empty(b, s, d), mesh, (None, None, None))
+            w1 = shard_tensor(torch.empty(d, f), mesh, (None, "model"))
+            w2 = shard_tensor(torch.empty(f, d), mesh, ("model", None))
+            with dryrun.Meter(fake) as meter:
+                h = x @ w1
+                assert h.placements[1] == Shard(2)
+                y = (h @ w2).redistribute(mesh, [Replicate(), Replicate()])
+                assert tuple(y.to_local().shape) == (b, s, d)
     assert meter.flops == 2 * (2 * b * s * d * f // 4)
     assert meter.coll_counts == {"all_reduce": 1}
     assert meter.coll_bytes == {"all_reduce": b * s * d * 4}
+
+
+GUARD_CELL = ("starcoder2-3b", ShapeConfig("p", 64, 32, "prefill"), "tp", (2, 4))
+
+
+def _measure_guard_cell():
+    arch, shape, rules, mesh_shape = GUARD_CELL
+    cfg = tconfigs.get_smoke(arch)
+    return dryrun.measure_cell(cfg, shape, multi_pod=False, rules_mode=rules,
+                               tcfg=dryrun.train_config(cfg), device="cpu",
+                               mesh_shape=mesh_shape)
+
+
+def test_measure_cell_refuses_to_run_beside_a_gloo_group(tmp_path):
+    """The dry run's fake group never replaces a caller's group: beside a
+    live 1-rank ``gloo`` group ``measure_cell`` raises, and the group is
+    still there, still ``gloo``."""
+    store = torch.distributed.FileStore(str(tmp_path / "store"), 1)
+    torch.distributed.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="'gloo' group of 1 ranks exists"):
+            _measure_guard_cell()
+        assert torch.distributed.is_initialized()
+        assert torch.distributed.get_backend() == "gloo"
+        assert torch.distributed.get_world_size() == 1
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_measure_cell_leaves_no_process_group():
+    """``measure_cell`` makes its fake group and takes it down; a second
+    call, in a group made anew, counts the same work."""
+    first = _measure_guard_cell()
+    assert not torch.distributed.is_initialized()
+    second = _measure_guard_cell()
+    assert not torch.distributed.is_initialized()
+    assert first["n_devices"] == second["n_devices"] == 8
+    for key in ("argument_bytes", "peak_bytes", "output_bytes"):
+        assert first[key] == second[key] > 0, key
+    a, b = first["meter"], second["meter"]
+    assert (a.flops, a.hbm_bytes, a.coll_bytes, a.coll_counts) == \
+        (b.flops, b.hbm_bytes, b.coll_bytes, b.coll_counts)
+    assert a.flops > 0 and a.coll_counts
 
 
 def _flash_flops(b, sq, sk, h, d, causal):  # chip_smoke.py::flash_flops

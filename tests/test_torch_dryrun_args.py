@@ -19,26 +19,17 @@ import sys
 import textwrap
 
 import pytest
-import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import configs as tconfigs
 from repro_torch.dist.sharding import make_rules
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import fake_world, make_production_mesh
 from repro_torch.launch.orchestrate_dryrun import cell_rules
 from repro_torch.models.config import SHAPES
+from torch_groups import no_process_group_left  # noqa: F401  (autouse)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-
-@pytest.fixture(autouse=True)
-def no_process_group_left():
-    """The dry run makes the default process group a ``fake`` one; take it
-    down after each test, so other test modules in this worker can make
-    their own."""
-    yield
-    if torch.distributed.is_initialized():
-        torch.distributed.destroy_process_group()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = [(mesh, arch, shape) for mesh in ("single", "multi") for arch in tconfigs.ARCHS
@@ -109,12 +100,12 @@ def test_argument_bytes_equal_reference(reference, mesh, arch, shape):
     multi = mesh == "multi"
     cfg = tconfigs.get_config(arch)
     rules = make_rules(cell_rules(arch, shape), multi_pod=multi)
-    dryrun.fake_world(512 if multi else 256)
-    pmesh = make_production_mesh(multi_pod=multi, device_type="cpu")
-    with FakeTensorMode(allow_non_fake_inputs=True):
-        cell = dryrun.build_cell(cfg, SHAPES[shape], pmesh, rules, dryrun.train_config(cfg),
-                                 "cpu")
-        got = cell.argument_bytes(pmesh, rules)
+    with fake_world(512 if multi else 256, 0):
+        pmesh = make_production_mesh(multi_pod=multi, device_type="cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            cell = dryrun.build_cell(cfg, SHAPES[shape], pmesh, rules,
+                                     dryrun.train_config(cfg), "cpu")
+            got = cell.argument_bytes(pmesh, rules)
     assert got == want["args"]
     assert dryrun.model_flops_global(cfg, SHAPES[shape], SHAPES[shape].kind) == \
         want["model_flops"]

@@ -11,23 +11,14 @@ HBM bytes and each collective kind's bytes, rank 0's on a (2, 4) mesh of a
 import dataclasses
 
 import pytest
-import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.launch import dryrun
 from repro_torch.launch import roofline_probe as rp
 from repro_torch.models.config import ShapeConfig
+from torch_groups import no_process_group_left  # noqa: F401  (autouse)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
-
-@pytest.fixture(autouse=True)
-def no_process_group_left():
-    """The dry run makes the default process group a ``fake`` one; take it
-    down after each test, so other test modules in this worker can make
-    their own."""
-    yield
-    if torch.distributed.is_initialized():
-        torch.distributed.destroy_process_group()
 
 CASES = [
     ("starcoder2-3b", dict(n_layers=5), ShapeConfig("t", 32, 16, "train"), "fsdp", 2),
