@@ -1175,14 +1175,12 @@ def phase_train_checkpoint(gen: torch.Generator, cfg, batch: int, seq: int) -> d
         for step in (2, 3):
             first.append(timed_step(step_fn, model, opt, stream.batch_at(step), step))
         os.remove(os.path.join(mgr._stepdir(2), "node_2.bin"))
-        gf_save = sum(sp.dur_us for sp in tr.spans_named("kernel.gf_matmul")) / 1e3
         t = time.perf_counter()
         restored, step, report = mgr.load(live)
         copy_state_(live, restored)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t
         del restored
-        gf_load = sum(sp.dur_us for sp in tr.spans_named("kernel.gf_matmul")) / 1e3 - gf_save
         spans = {name: [sp.dur_us / 1e3 for sp in tr.spans_named(name)] for name in (
             "ckpt.encode", "ckpt.save", "ckpt.load", "ckpt.restore")}
         calls = {path: tr.counter_value("kernel.gf_matmul.calls", path=path)
@@ -1205,8 +1203,7 @@ def phase_train_checkpoint(gen: torch.Generator, cfg, batch: int, seq: int) -> d
             "state_bytes": state_bytes, "stripe_bytes": stripe_bytes,
             "mode": report.mode, "cross_rack_blocks": report.cross_rack_blocks,
             "plan_cross_rack_blocks": plan_cross, "gf_calls": calls,
-            "save_host_s": save_s, "save_gf_device_ms": gf_save,
-            "load_host_s": load_s, "load_gf_device_ms": gf_load, "spans_ms": spans,
+            "save_host_s": save_s, "load_host_s": load_s, "spans_ms": spans,
             "losses_first_pass": [r["loss"] for r in first[2:]],
             "losses_replayed": [r["loss"] for r in replay],
             "step_host_ms": [r["host_ms"] for r in first + replay]}
@@ -1514,12 +1511,10 @@ def phase_state_checkpoint(state: dict) -> dict:
         ckpt = encode_state(state, family="DRC", n=9, k=6, r=3, device=DEVICE)
         torch.cuda.synchronize()
         encode_s = time.perf_counter() - t
-        gf_encode = sum(sp.dur_us for sp in tr.spans_named("kernel.gf_matmul")) / 1e3
         t = time.perf_counter()
         got, report = restore_state(ckpt, state, available=set(range(1, 9)))
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t
-        gf_restore = sum(sp.dur_us for sp in tr.spans_named("kernel.gf_matmul")) / 1e3 - gf_encode
         calls = {path: tr.counter_value("kernel.gf_matmul.calls", path=path)
                  for path in ("cuda", "ref")}
     launches = gf_matmul_batched.launches
@@ -1537,8 +1532,7 @@ def phase_state_checkpoint(state: dict) -> dict:
            "stripe_bytes": sum(p.numel() for p in ckpt.payloads.values()),
            "mode": report.mode, "cross_rack_blocks": report.cross_rack_blocks,
            "plan_cross_rack_blocks": plan_cross, "gf_launches": launches, "gf_calls": calls,
-           "encode_host_s": encode_s, "encode_gf_device_ms": gf_encode,
-           "restore_host_s": restore_s, "restore_gf_device_ms": gf_restore}
+           "encode_host_s": encode_s, "restore_host_s": restore_s}
     del ckpt, got
     return out
 
@@ -1952,7 +1946,7 @@ def phase_pod(smi: str) -> tuple[dict, int, int]:
           f"16b: resumed {root['resumed']} against uninterrupted {root['uninterrupted']}")
     check(gf > 0, "16b: the checkpoint launched the GF kernel no time")
     summary = {"pod_bytes_rank0_train_step": pod_bytes,
-               "save_s": root["save_s"], "load_s": root["load_s"], "gf_ms": root["gf_ms"],
+               "save_s": root["save_s"], "load_s": root["load_s"],
                "gf_launches": gf, "mode": root["mode"],
                "cross_rack_blocks": root["cross_rack_blocks"],
                "resumed": root["resumed"], "uninterrupted": root["uninterrupted"]}

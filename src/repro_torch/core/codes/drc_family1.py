@@ -238,6 +238,7 @@ class DRCFamily1(StripwiseRS):
             relayer_sends=relayer_sends,
             decode=decode,
             target_order=build_target_order(node_sends, relayer_sends),
+            family=self.name,
         )
         if not plan.coefficient_check(coeffs):
             return None
@@ -403,6 +404,7 @@ class DRCFamily1(StripwiseRS):
             relayer_sends=relayer_sends,
             decode=decode,
             target_order=build_target_order(node_sends, relayer_sends),
+            family=self.name,
         )
         if not plan.coefficient_check(coeffs):
             return None

@@ -147,6 +147,7 @@ class DRCFamily2(StripwiseRS):
             relayer_sends=relayer_sends,
             decode=np.ascontiguousarray(decode),
             target_order=build_target_order(node_sends, relayer_sends),
+            family=self.name,
         )
 
     def theoretical_cross_rack_blocks(self) -> float:

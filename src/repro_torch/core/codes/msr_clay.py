@@ -197,6 +197,7 @@ class MSRCode(ErasureCode):
             relayer_sends=[],
             decode=self._repair_decode(failed),
             target_order=build_target_order(node_sends, []),
+            family=self.name,
         )
 
     def theoretical_cross_rack_blocks(self) -> float:

@@ -50,6 +50,7 @@ class RSCode(ErasureCode):
             relayer_sends=[],
             decode=np.ascontiguousarray(d),
             target_order=build_target_order(node_sends, []),
+            family=self.name,
         )
         return plan
 

@@ -25,7 +25,7 @@ Unit = one subblock payload of B/α bytes; bandwidth is reported in *blocks*.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import InitVar, dataclass, field
 from typing import Any
 
 import numpy as np
@@ -89,6 +89,12 @@ class RepairPlan:
     decode: np.ndarray  # (alpha, total units at target)
     # provenance of the target's input units, in decode-column order:
     target_order: list[int] = field(default_factory=list)  # src node per unit
+    family: InitVar[str] = ""  # the code's name: labels the build counter
+
+    def __post_init__(self, family: str) -> None:
+        # every plan is built here, and a plan cache's hit never gets here:
+        # the counter is the codes' plan-cache misses
+        obs.counter_add("repair.plan.builds", 1, family=family)
 
     # ------------------------------------------------------------------ util
     def _relayer_input_order(self, relayer: int) -> list[Send]:
@@ -192,6 +198,13 @@ class RepairPlan:
         if stage == "relayer_encode" and scope == "cross":
             obs.counter_add("repair.units_cross", s.units, relayer=str(s.src))
 
+    @staticmethod
+    def _record_gf(matrix: np.ndarray, sub_bytes: int, stage: str) -> None:
+        """Book one product's GF multiply bytes: its nonzero coefficients,
+        each over a subblock."""
+        obs.counter_add("repair.gf_mult_bytes",
+                        int(np.count_nonzero(matrix)) * sub_bytes, stage=stage)
+
     # ------------------------------------------------------------- execution
     def execute(self, payloads: dict[int, torch.Tensor]) -> torch.Tensor:
         """Run the plan on real bytes.
@@ -206,6 +219,7 @@ class RepairPlan:
         moves are counted inner- vs cross-rack (see `_record_send`).
         """
         sub_bytes = next(iter(payloads.values())).shape[1]
+        traced = obs.enabled()  # the counters' arithmetic runs only when read
         with obs.span("repair.execute", cat="repair", failed=self.failed,
                       alpha=self.alpha, sub_bytes=sub_bytes):
             sent: dict[tuple[int, int], torch.Tensor] = {}
@@ -213,12 +227,10 @@ class RepairPlan:
                 with obs.span("repair.node_encode", cat="repair", src=s.src,
                               dst=s.dst, units=s.units):
                     sent[(s.src, s.dst)] = ops.gf_matmul(s.matrix, payloads[s.src])
-                    obs.counter_add(
-                        "repair.gf_mult_bytes",
-                        int(np.count_nonzero(s.matrix)) * sub_bytes,
-                        stage="node_encode",
-                    )
-                self._record_send(s, sub_bytes, "node_encode")
+                    if traced:
+                        self._record_gf(s.matrix, sub_bytes, "node_encode")
+                if traced:
+                    self._record_send(s, sub_bytes, "node_encode")
             units: list[torch.Tensor] = []
             for s in sorted(
                 (x for x in self.node_sends if x.dst == TARGET), key=lambda x: x.src
@@ -233,20 +245,15 @@ class RepairPlan:
                     units.append(
                         ops.gf_matmul(s.matrix, torch.cat(inputs, dim=0))
                     )
-                    obs.counter_add(
-                        "repair.gf_mult_bytes",
-                        int(np.count_nonzero(s.matrix)) * sub_bytes,
-                        stage="relayer_encode",
-                    )
-                self._record_send(s, sub_bytes, "relayer_encode")
+                    if traced:
+                        self._record_gf(s.matrix, sub_bytes, "relayer_encode")
+                if traced:
+                    self._record_send(s, sub_bytes, "relayer_encode")
             with obs.span("repair.decode", cat="repair",
                           units=self.decode.shape[1]):
                 target_in = torch.cat(units, dim=0)
-                obs.counter_add(
-                    "repair.gf_mult_bytes",
-                    int(np.count_nonzero(self.decode)) * sub_bytes,
-                    stage="decode",
-                )
+                if traced:
+                    self._record_gf(self.decode, sub_bytes, "decode")
                 return ops.gf_matmul(self.decode, target_in)
 
     def participants(self) -> list[int]:

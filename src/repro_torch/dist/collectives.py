@@ -360,7 +360,8 @@ def make_spmd_repair(
                                 or not out.is_contiguous() or out.device != x.device):
             raise ValueError(f"out must be a contiguous uint8 {tuple(x.shape)} tensor on {x.device}")
         dev, sub = x.device, x.shape[2]
-        _record_schedule(spec, sub)
+        if obs.enabled():
+            _record_schedule(spec, sub)
         x = x.contiguous()
         units = torch.empty((n * nu + len(rel) * ru, sub), dtype=torch.uint8, device=dev)
         y = units[:n * nu].view(n, nu, sub)
@@ -470,7 +471,7 @@ def make_mesh_repair(spec: SpmdRepairSpec, mesh: Any) -> Callable[..., torch.Ten
         if x.dtype != torch.uint8 or x.ndim != 3 or tuple(x.shape[:2]) != (1, alpha):
             raise ValueError(f"need (1, {alpha}, sub) uint8, got {x.dtype} {tuple(x.shape)}")
         dev, sub = x.device, x.shape[2]
-        if is_collector:
+        if is_collector and obs.enabled():
             _record_schedule(spec, sub)
         own = x[0].contiguous()
         out = torch.empty_like(x) if out is None else out
@@ -542,12 +543,13 @@ def spmd_repair(
     (every rank calls this): payloads is this rank's (1, alpha, sub) shard
     and the output is this rank's (1, alpha, sub) block.
     """
-    spec = plan_to_spmd(code, code.repair_plan(failed))
-    sub_bytes = int(payloads.shape[-1])
-    body = make_spmd_repair(spec) if mesh is None else make_mesh_repair(spec, mesh)
-    with obs.span("repair.spmd", cat="repair", failed=failed,
-                  family=spec.family, alpha=spec.alpha, sub_bytes=sub_bytes):
-        out = body(payloads)
+    with obs.span("repair.spmd", cat="repair", failed=failed, family=code.name,
+                  alpha=code.alpha, sub_bytes=int(payloads.shape[-1])):
+        with obs.span("repair.plan", cat="repair", stripes=1):
+            spec = plan_to_spmd(code, code.repair_plan(failed))
+            body = make_spmd_repair(spec) if mesh is None else make_mesh_repair(spec, mesh)
+        with obs.span("repair.launch", cat="repair", stripes=1):
+            out = body(payloads)
     return out, spec
 
 
@@ -561,19 +563,26 @@ def spmd_node_recovery(
     ``repair_plan(failed, rotation=s)`` so the relayer role rotates
     across the helper nodes of each remote rack (paper §5.2: node-level
     repair load balance).  Returns (output of payloads' shape, specs).
+
+    Under ``repro_torch.obs`` the call is one ``repair.spmd_node_recovery``
+    span with two children: ``repair.plan`` (every stripe's plan lookup,
+    lowering and program) and ``repair.launch`` (the programs' runs).
     """
     n_stripes = int(payloads.shape[0])
-    specs = [plan_to_spmd(code, code.repair_plan(failed, rotation=s))
-             for s in range(n_stripes)]
-    bodies = [make_spmd_repair(sp) if mesh is None else make_mesh_repair(sp, mesh)
-              for sp in specs]
-    relayer_sets = {tuple(sp.rel_idx.tolist()) for sp in specs}
     with obs.span("repair.spmd_node_recovery", cat="repair", failed=failed,
-                  family=specs[0].family if specs else "", stripes=n_stripes,
-                  distinct_relayer_sets=len(relayer_sets)):
-        out = torch.empty_like(payloads)
-        for s, body in enumerate(bodies):
-            body(payloads[s], out=out[s])
+                  family=code.name, stripes=n_stripes) as root:
+        with obs.span("repair.plan", cat="repair", stripes=n_stripes):
+            specs = [plan_to_spmd(code, code.repair_plan(failed, rotation=s))
+                     for s in range(n_stripes)]
+            bodies = [make_spmd_repair(sp) if mesh is None else make_mesh_repair(sp, mesh)
+                      for sp in specs]
+        if obs.enabled():
+            root.set_attr("distinct_relayer_sets",
+                          len({tuple(sp.rel_idx.tolist()) for sp in specs}))
+        with obs.span("repair.launch", cat="repair", stripes=n_stripes):
+            out = torch.empty_like(payloads)
+            for s, body in enumerate(bodies):
+                body(payloads[s], out=out[s])
     return out, specs
 
 

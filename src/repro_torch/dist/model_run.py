@@ -472,12 +472,6 @@ def _local_bits(state: Any) -> list[torch.Tensor]:
             .view(torch.uint8).cpu().clone() for p in ckpt_io.tensors(state)]
 
 
-def _gf_ms(tr: obs.Tracer) -> float:
-    """The GF products' time under ``tr`` (each kernel.gf_matmul span runs
-    between two device synchronisations)."""
-    return sum(sp.dur_us for sp in tr.spans_named("kernel.gf_matmul")) / 1e3
-
-
 def _checkpoint_round_trip(i: int, model, opt: dict, at_step: int, step, rank: int,
                            device: str, workdir: str) -> dict:
     """The sharded train state through a ``CheckpointManager`` (DRC(9,6,3)
@@ -488,19 +482,16 @@ def _checkpoint_round_trip(i: int, model, opt: dict, at_step: int, step, rank: i
     deleted, the load into the layout through the layered repair
     (``load_s``), each rank's restored blocks held to the saved ones bit for
     bit, the state copied back in place, and the same step again (the
-    resumed step).  The GF kernel's launches count the save and the load;
-    ``gf_ms`` is their products' time on rank 0."""
+    resumed step).  The GF kernel's launches count the save and the load."""
     mgr = ckpt_io.CheckpointManager(os.path.join(workdir, f"ckpt{i}"), device=device)
     live = train_state(model, opt)
     saved = _local_bits(live)
     gf = gf_matmul_batched.launches
     dist.barrier()
     t0 = time.perf_counter()
-    with obs.tracing("checkpoint save") as tr:
-        mgr.save(at_step, live)
-        _sync(device)
+    mgr.save(at_step, live)
+    _sync(device)
     save_s = time.perf_counter() - t0
-    gf_ms = {"save": _gf_ms(tr)}
     gf_save = gf_matmul_batched.launches - gf
     out: dict = {"save_s": save_s}
     whole = ckpt_io.gather_state(live)
@@ -521,11 +512,9 @@ def _checkpoint_round_trip(i: int, model, opt: dict, at_step: int, step, rank: i
     dist.barrier()
     like = train_state(model, opt)
     t0 = time.perf_counter()
-    with obs.tracing("checkpoint load") as tr:
-        restored, at, report = mgr.load(like)
-        _sync(device)
-    gf_ms["load"] = _gf_ms(tr)
-    out.update(load_s=time.perf_counter() - t0, gf_ms=gf_ms, step=at, mode=report.mode,
+    restored, at, report = mgr.load(like)
+    _sync(device)
+    out.update(load_s=time.perf_counter() - t0, step=at, mode=report.mode,
                repaired_nodes=report.repaired_nodes,
                cross_rack_blocks=report.cross_rack_blocks,
                inner_rack_blocks=report.inner_rack_blocks,

@@ -9,15 +9,17 @@ and the checkpoint encode.  It
 * launches the CUDA kernel on a CUDA payload (every call; the kernel masks
   its own ragged edge), or runs the plain table version on a CPU payload.
 
-Under an active ``repro_torch.obs`` tracer every call records a
-``kernel.gf_matmul`` span with wall-clock and achieved GB/s (payload in + out
-bytes).  Only then does the call synchronise the device around the launch,
-so traced runs are synchronous and untraced runs are not.
+Under an active ``repro_torch.obs`` tracer every call records a measured
+``kernel.gf_matmul`` span on the calling thread, nested in its caller's
+span: the host time of the call, the matrix's move to the device and the
+launch (the call does not wait for the kernel).  The counters
+``kernel.gf_matmul.calls`` and ``.bytes`` (payload in + out) count the
+calls.  The kernel's device time is read from ``torch.profiler``, whose
+trace lies on the span's clock (``obs.Tracer.unix_us``).
 """
 from __future__ import annotations
 
 import functools
-import time
 
 import numpy as np
 import torch
@@ -70,10 +72,13 @@ def gf_matmul(
     """
     if x.dtype != torch.uint8 or x.ndim != 2:
         raise ValueError(f"payload must be 2-D uint8, got {x.dtype} {tuple(x.shape)}")
-    mt = _device_matrix(m, x)
-    if mt.ndim != 2 or mt.shape[1] != x.shape[0]:
-        raise ValueError(f"payload {tuple(x.shape)} does not match matrix {tuple(mt.shape)}")
-    y = _traced(mt[None], x.contiguous()[None], None if out is None else out[None])
+    with obs.span("kernel.gf_matmul", cat="kernel") as span:
+        mt = _device_matrix(m, x)
+        if mt.ndim != 2 or mt.shape[1] != x.shape[0]:
+            raise ValueError(f"payload {tuple(x.shape)} does not match matrix {tuple(mt.shape)}")
+        y = _kernel.gf_matmul_batched(mt[None], x.contiguous()[None],
+                                      None if out is None else out[None])
+    _record(span, y, x.shape[0], x.is_cuda)
     return y[0]
 
 
@@ -81,33 +86,23 @@ def gf_matmul_batched(
     m: np.ndarray | torch.Tensor, x: torch.Tensor, *, out: torch.Tensor | None = None
 ) -> torch.Tensor:
     """G products in one launch: (G, R, K) @ (G, K, B) -> (G, R, B) uint8."""
-    mt = _device_matrix(m, x)
-    return _traced(mt, x.contiguous(), out)
-
-
-def _traced(m: torch.Tensor, x: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
-    tracer = obs.current()
-    if tracer is None:
-        return _kernel.gf_matmul_batched(m, x, out)
-    g, r, k = m.shape
-    b = x.shape[2]
-    path = "cuda" if x.is_cuda else "ref"
-    # traced timing must observe the finished launch: traced runs only
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)  # check: ignore[host-sync] span start
-    t0 = time.perf_counter()
-    y = _kernel.gf_matmul_batched(m, x, out)
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)  # check: ignore[host-sync] span end
-    dt = max(time.perf_counter() - t0, 1e-9)
-    moved = g * (k + r) * b  # payload bytes in + out
-    tracer.record_span("kernel.gf_matmul", dt, cat="kernel", track="kernel",
-                       at_s=tracer.now_us() / 1e6 - dt,
-                       r=r, k=k, b=b, g=g, path=path, gbps=moved / dt / 1e9)
-    tracer.counter_add("kernel.gf_matmul.bytes", moved, path=path)
-    tracer.counter_add("kernel.gf_matmul.calls", 1, path=path)
-    tracer.gauge_set("kernel.gf_matmul.gbps", moved / dt / 1e9, path=path)
+    with obs.span("kernel.gf_matmul", cat="kernel") as span:
+        y = _kernel.gf_matmul_batched(_device_matrix(m, x), x.contiguous(), out)
+    _record(span, y, x.shape[1], x.is_cuda)
     return y
+
+
+def _record(span: obs.Span, y: torch.Tensor, k: int, on_card: bool) -> None:
+    """The call's shape on its span, and its counters (after the span
+    closed, so that the span times the call alone)."""
+    tracer = obs.current()
+    if tracer is None or not isinstance(span, obs.Span):
+        return
+    g, r, b = y.shape
+    path = "cuda" if on_card else "ref"
+    span.attrs.update(r=r, k=k, b=b, g=g, path=path)
+    tracer.counter_add("kernel.gf_matmul.bytes", g * (k + r) * b, path=path)
+    tracer.counter_add("kernel.gf_matmul.calls", 1, path=path)
 
 
 def encode_payload(generator: np.ndarray, data: torch.Tensor) -> torch.Tensor:

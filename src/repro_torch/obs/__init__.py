@@ -7,8 +7,11 @@ the benchmark drivers all emit the *same* stage schema —
     disk → node_encode → inner → relayer_encode → cross → decode → write
 
 — as spans, plus typed counters (bytes inner-/cross-rack, GF multiply
-bytes, units per relayer) and gauges (achieved GB/s), so simulated and
-measured runs are directly comparable in one Chrome trace.
+bytes, units per relayer, plans built) and gauges (a simulated run's
+recovery rate), so simulated and measured runs are directly comparable in
+one Chrome trace.  Measured spans are host time on the calling thread;
+their Unix-clock times (`Tracer.unix_us`) line up with a ``torch.profiler``
+trace of the same stretch, which holds the device's time.
 
 Usage::
 
@@ -25,7 +28,6 @@ active — instrumented hot paths pay nothing measurable while tracing
 is off.
 """
 from .export import (
-    spans_from_chrome,
     summary,
     to_chrome_trace,
     write_chrome_trace,
@@ -55,6 +57,6 @@ STAGE_NAMES = (
 __all__ = [
     "CounterEvent", "MetricSet", "NULL_SPAN", "STAGE_NAMES", "Span",
     "Tracer", "counter_add", "current", "enabled", "gauge_set",
-    "record_span", "span", "spans_from_chrome", "summary", "to_chrome_trace",
+    "record_span", "span", "summary", "to_chrome_trace",
     "tracing", "write_chrome_trace", "write_summary",
 ]

@@ -3,11 +3,12 @@
 Chrome format (load in chrome://tracing or https://ui.perfetto.dev):
 
 * each `Span` becomes a complete event (``"ph": "X"``) with ``ts``/``dur``
-  in microseconds; the span's track maps to a stable integer ``tid``
-  whose human name is emitted as ``thread_name`` metadata;
-* span ids/parent ids and user attrs ride in ``args`` so the export is
-  lossless — `spans_from_chrome` rebuilds the span list for round-trip
-  tests and offline analysis;
+  in microseconds, ``ts`` on the Unix clock (`Tracer.unix_us`): the clock of
+  a ``torch.profiler`` trace, whose ``ts`` plus ``baseTimeNanoseconds /
+  1000`` is the same instant, so both traces of one stretch line up; the
+  span's track maps to a stable integer ``tid`` whose human name is emitted
+  as ``thread_name`` metadata; span ids/parent ids and user attrs ride in
+  ``args``;
 * journalled counter updates become counter events (``"ph": "C"``), one
   track per counter name, one series per label set.
 
@@ -21,7 +22,7 @@ import json
 from typing import Any
 
 from .metrics import label_str
-from .tracer import Span, Tracer
+from .tracer import Tracer
 
 _PID = 0
 
@@ -50,40 +51,16 @@ def to_chrome_trace(tracer: Tracer) -> dict[str, Any]:
         events.append({
             "ph": "X", "pid": _PID, "tid": tracks[s.track],
             "name": s.name, "cat": s.cat or "default",
-            "ts": s.start_us, "dur": s.dur_us, "args": args,
+            "ts": tracer.unix_us(s.start_us), "dur": s.dur_us, "args": args,
         })
     ctid = len(tracks)
     for ev in tracer.metrics.counter_events:
         series = label_str(ev.labels) or "value"
         events.append({
             "ph": "C", "pid": _PID, "tid": ctid, "name": ev.name,
-            "ts": ev.ts_us, "args": {series: ev.value},
+            "ts": tracer.unix_us(ev.ts_us), "args": {series: ev.value},
         })
     return {"traceEvents": events, "displayTimeUnit": "ms"}
-
-
-def spans_from_chrome(obj: dict[str, Any]) -> list[Span]:
-    """Inverse of `to_chrome_trace` for the "X" events (round-trip tests)."""
-    names: dict[int, str] = {}
-    for ev in obj["traceEvents"]:
-        if ev.get("ph") == "M" and ev.get("name") == "thread_name":
-            names[ev["tid"]] = ev["args"]["name"]
-    spans: list[Span] = []
-    for ev in obj["traceEvents"]:
-        if ev.get("ph") != "X":
-            continue
-        args = dict(ev.get("args", {}))
-        span_id = args.pop("span_id")
-        parent_id = args.pop("parent_id", None)
-        cat = ev.get("cat", "")
-        spans.append(Span(
-            span_id, parent_id, ev["name"],
-            "" if cat == "default" else cat,
-            names.get(ev["tid"], str(ev["tid"])),
-            ev["ts"], ev["dur"], args,
-        ))
-    spans.sort(key=lambda s: s.span_id)
-    return spans
 
 
 def summary(tracer: Tracer) -> dict[str, Any]:

@@ -4,8 +4,8 @@ Two metric kinds, both labelled:
 
 * **Counter** — monotonically accumulating (``counter_add``): bytes
   moved inner- vs cross-rack, GF multiply bytes, units sent per relayer.
-* **Gauge** — last-write-wins (``gauge_set``): achieved GB/s of a kernel
-  invocation, recovery throughput of a simulated run.
+* **Gauge** — last-write-wins (``gauge_set``): the recovery throughput
+  and degraded-read latency of a simulated run.
 
 A metric instance is keyed by ``(name, sorted labels)``.  Every counter
 update is also journalled with a timestamp so the Chrome-trace exporter
@@ -18,8 +18,7 @@ counters sum across label sets of the same name; gauges never aggregate
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, NamedTuple
 
 LabelKey = tuple[tuple[str, str], ...]
 
@@ -32,8 +31,7 @@ def label_str(key: LabelKey) -> str:
     return ",".join(f"{k}={v}" for k, v in key) if key else ""
 
 
-@dataclass(frozen=True)
-class CounterEvent:
+class CounterEvent(NamedTuple):
     """One journalled counter update (cumulative value after the add)."""
 
     ts_us: float

@@ -2,7 +2,11 @@
 ``repro_torch.obs``.
 
 A `Tracer` collects `Span` records on a single monotonic timebase
-(microseconds since the tracer's epoch).  Spans come from two sources:
+(microseconds since the tracer's epoch).  The epoch is also read once on the
+Unix clock, so `Tracer.unix_us` puts a span on the timeline a
+``torch.profiler`` trace exports (its ``ts`` plus ``baseTimeNanoseconds /
+1000`` is Unix-epoch microseconds): a span and the device work it launched
+can be read together.  Spans come from two sources:
 
 * **measured** — ``tracer.span(name)`` context managers wrap real work
   and record wall-clock via ``time.monotonic_ns``; nesting is tracked
@@ -10,9 +14,8 @@ A `Tracer` collects `Span` records on a single monotonic timebase
   land on separate tracks;
 * **synthetic** — ``tracer.record_span(name, dur_s, ...)`` injects a
   span with an explicit duration (and optionally an explicit start) so
-  *simulated* stage times (the reference package's storage simulator) and externally-timed
-  intervals (kernel dispatch) share the same schema and trace files as
-  measured spans.
+  *simulated* stage times (the storage simulator) share the same schema
+  and trace files as measured spans.
 
 Activation is process-global (one tracer at a time, activations nest)
 while the span *stack* is thread-local — so library code (repair
@@ -84,13 +87,44 @@ class _NullSpan(contextlib.AbstractContextManager["_NullSpan"]):
 NULL_SPAN = _NullSpan()
 
 
+class _Measured(contextlib.AbstractContextManager[Span]):
+    """One measured span's context: the span opens on entry, on the calling
+    thread's stack, and is timed and recorded on exit (a class rather than a
+    generator: instrumented hot paths open one per call)."""
+
+    __slots__ = ("_tracer", "_name", "_cat", "_attrs", "_span", "_stack")
+
+    def __init__(self, tracer: "Tracer", name: str, cat: str, attrs: dict[str, Any]):
+        self._tracer, self._name, self._cat, self._attrs = tracer, name, cat, attrs
+
+    def __enter__(self) -> Span:
+        t = self._tracer
+        stack = self._stack = t._stack()
+        parent = stack[-1].span_id if stack else None
+        s = self._span = Span(next(t._ids), parent, self._name, self._cat,
+                              threading.current_thread().name, t.now_us(), 0.0,
+                              self._attrs)
+        stack.append(s)
+        return s
+
+    def __exit__(self, *exc: object) -> None:
+        t, s = self._tracer, self._span
+        s.dur_us = t.now_us() - s.start_us
+        self._stack.pop()
+        with t._lock:
+            t.spans.append(s)
+
+
 class Tracer:
     """Collects spans + metrics for one traced run.  Thread-safe."""
 
     def __init__(self, name: str = "trace"):
         self.name = name
         self._prev: Tracer | None = None  # tracer shadowed by this activation
-        self.epoch_ns = time.monotonic_ns()
+        # the Unix clock read between two monotonic reads: the epoch on both
+        # clocks, to within half the time between them
+        t0, self.epoch_unix_ns, t1 = time.monotonic_ns(), time.time_ns(), time.monotonic_ns()
+        self.epoch_ns = (t0 + t1) // 2
         self.spans: list[Span] = []
         self.metrics = MetricSet(clock_us=self.now_us)
         self._ids = itertools.count(1)
@@ -102,6 +136,11 @@ class Tracer:
     # ------------------------------------------------------------ timebase
     def now_us(self) -> float:
         return (time.monotonic_ns() - self.epoch_ns) / 1e3
+
+    def unix_us(self, t_us: float) -> float:
+        """A time on this tracer's timeline (µs since its epoch) as Unix-epoch
+        µs, the clock of an exported ``torch.profiler`` trace."""
+        return self.epoch_unix_ns / 1e3 + t_us
 
     def next_seq(self) -> int:
         """Monotonic sequence number (e.g. to name one track per operation)."""
@@ -118,21 +157,9 @@ class Tracer:
         stack = self._stack()
         return stack[-1] if stack else None
 
-    @contextlib.contextmanager
-    def span(self, name: str, cat: str = "", **attrs: Any) -> Iterator[Span]:
+    def span(self, name: str, cat: str = "", **attrs: Any) -> "_Measured":
         """Measured span: times the enclosed block, nests per-thread."""
-        stack = self._stack()
-        parent = stack[-1].span_id if stack else None
-        s = Span(next(self._ids), parent, name, cat,
-                 threading.current_thread().name, self.now_us(), 0.0, attrs)
-        stack.append(s)
-        try:
-            yield s
-        finally:
-            s.dur_us = self.now_us() - s.start_us
-            stack.pop()
-            with self._lock:
-                self.spans.append(s)
+        return _Measured(self, name, cat, attrs)
 
     def record_span(self, name: str, dur_s: float, *, cat: str = "",
                     track: str | None = None, at_s: float | None = None,

@@ -56,10 +56,12 @@ def test_repair_layering_matches_the_reference_demo(tmp_path, capsys, monkeypatc
         assert a == b.replace("(repro.obs)", "(repro_torch.obs)").replace(ref_trace, port_trace)
     # the summaries: the port's counters are the reference's, plus the GF
     # entry point's own (kernel.gf_matmul.*, which the reference's numpy
-    # executor does not record)
+    # executor does not record) and the plans built (repair.plan.builds)
     ref_c, port_c = _counters(ref_trace.replace(".json", ".summary.json")), \
         _counters(got["summary"])
-    assert {k: v for k, v in port_c.items() if not k.startswith("kernel.")} == ref_c
+    assert {k: v for k, v in port_c.items()
+            if not k.startswith(("kernel.", "repair.plan."))} == ref_c
+    assert set(port_c["repair.plan.builds"]) == {"family=DRC", "family=RS"}
     assert set(port_c["kernel.gf_matmul.calls"]) == {"path=ref"}  # the CPU's plain product
     total_cross = 0
     for fam, n, k, r in repair_layering.TRACED_CODES:

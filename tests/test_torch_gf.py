@@ -187,9 +187,43 @@ def test_traced_kernel_span_and_counters_match_reference():
     with robs.tracing("ref") as rtr:
         rops.gf_matmul(m, jnp.asarray(x))
     (span,) = tr.spans_named("kernel.gf_matmul")
-    assert span.attrs["path"] == "ref" and (span.attrs["r"], span.attrs["k"]) == (3, 6)
+    assert span.attrs == {"path": "ref", "r": 3, "k": 6, "b": 256, "g": 1}
+    assert span.cat == "kernel" and span.parent_id is None and span.dur_us > 0
     for name in ("kernel.gf_matmul.bytes", "kernel.gf_matmul.calls"):
         assert tr.counter_value(name, path="ref") == rtr.counter_value(name, path="ref")
+    assert not tr.metrics.gauges
+
+
+class _OnCard(torch.Tensor):
+    """A host payload that says it lies on the card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_traced_gf_matmul_never_synchronises_and_nests_in_its_caller(monkeypatch):
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: syncs.append(a))
+    monkeypatch.setattr(ops._kernel, "gf_matmul_batched",
+                        lambda m, x, out: torch.zeros((m.shape[0], m.shape[1], x.shape[2]),
+                                                      dtype=torch.uint8))
+    m, x = _rand(np.random.default_rng(12), 3, 6, 256)
+    x = _t(x).as_subclass(_OnCard)
+    with obs.tracing("port") as tr:
+        with obs.span("caller") as caller:
+            ops.gf_matmul(m, x)
+            ops.gf_matmul_batched(m[None], x[None])
+    assert syncs == []
+    spans = tr.spans_named("kernel.gf_matmul")
+    assert len(spans) == 2
+    for span in spans:
+        assert span.parent_id == caller.span_id and span.track == caller.track
+        assert caller.start_us <= span.start_us
+        assert span.start_us + span.dur_us <= caller.start_us + caller.dur_us
+        assert span.attrs["path"] == "cuda" and "gbps" not in span.attrs
+    assert tr.counter_value("kernel.gf_matmul.calls", path="cuda") == 2
+    assert tr.counter_value("kernel.gf_matmul.bytes", path="cuda") == 2 * (6 + 3) * 256
 
 
 def test_bitsliced_model_every_coefficient():

@@ -124,6 +124,78 @@ def test_spmd_node_recovery_rotates_relayers():
     assert span.attrs["distinct_relayer_sets"] == len(rel_sets)
     assert tr.counter_value("repair.bytes.cross_rack") == sum(
         sp.traffic_bytes(64)["cross_rack"] for sp in specs)
+    _assert_plan_then_launch(tr, span)
+
+
+def _assert_plan_then_launch(tr, root):
+    """``repair.plan`` then ``repair.launch``, the root's only children, lie
+    within it, and every span recorded descends from it."""
+    by_id = {s.span_id: s for s in tr.spans}
+    children = sorted((s for s in tr.spans if s.parent_id == root.span_id),
+                      key=lambda s: s.start_us)
+    assert [s.name for s in children] == ["repair.plan", "repair.launch"]
+    plan, launch = children
+    end = lambda s: s.start_us + s.dur_us  # noqa: E731
+    assert root.start_us <= plan.start_us and end(plan) <= launch.start_us
+    assert end(launch) <= end(root)
+    for s in tr.spans:
+        while s.parent_id is not None:
+            s = by_id[s.parent_id]
+        assert s is root
+    assert {s.name for s in tr.spans if s.parent_id == launch.span_id} >= {
+        "repair.inner", "repair.cross", "repair.decode"}
+
+
+@pytest.mark.parametrize("spec", SPMD_CODES, ids=IDS)
+def test_spmd_repair_spans_plan_and_launch(spec):
+    port = make_code(*spec)
+    stacked = torch.from_numpy(np.stack(_codeword(r_make_code(*spec), 64, 3)))
+    with obs.tracing("spmd") as tr:
+        tcoll.spmd_repair(port, 0, stacked)
+    (root,) = tr.spans_named("repair.spmd")
+    assert root.attrs["family"] == port.name and root.attrs["alpha"] == port.alpha
+    _assert_plan_then_launch(tr, root)
+
+
+@pytest.mark.parametrize("family", ["DRC", "RS"])
+def test_plan_builds_count_the_plan_cache_misses(family):
+    code = make_code(family, 9, 6, 3)  # a fresh code: nothing of it cached
+    cached = getattr(type(code).repair_plan, "cache_info", None)
+    payloads = torch.from_numpy(np.stack(
+        [np.stack(_codeword(r_make_code(family, 9, 6, 3), 16, s)) for s in range(8)]))
+    builds = []
+    for _ in range(2):
+        misses = cached().misses if cached else None
+        with obs.tracing("recovery") as tr:
+            tcoll.spmd_node_recovery(code, 4, payloads)
+        builds.append(tr.counter_value("repair.plan.builds", family=code.name))
+        assert tr.counter_value("repair.plan.builds") == builds[-1]
+        if cached:
+            assert cached().misses - misses == builds[-1]
+    # DRC's plans are cached: the repeat builds none; RS builds every stripe's
+    assert builds == ([8, 0] if family == "DRC" else [8, 8])
+
+
+def test_untraced_execute_computes_no_counter(monkeypatch):
+    code = make_code("DRC", 9, 6, 3)
+    nodes = _codeword(r_make_code("DRC", 9, 6, 3), 32, 4)
+    plan = code.repair_plan(0)
+    helpers = {i: torch.from_numpy(nodes[i]) for i in plan.participants()}
+    counted, schedules = [], []
+    count_nonzero, record_schedule = np.count_nonzero, tcoll._record_schedule
+    monkeypatch.setattr(np, "count_nonzero",
+                        lambda *a, **k: counted.append(1) or count_nonzero(*a, **k))
+    monkeypatch.setattr(tcoll, "_record_schedule",
+                        lambda *a: schedules.append(1) or record_schedule(*a))
+    body = tcoll.make_spmd_repair(tcoll.plan_to_spmd(code, plan))
+    stacked = torch.from_numpy(np.stack(nodes))
+    np.testing.assert_array_equal(plan.execute(helpers).numpy(), nodes[0])
+    body(stacked)
+    assert counted == [] and schedules == []
+    with obs.tracing("traced"):  # the traced run books its counters
+        plan.execute(helpers)
+        body(stacked)
+    assert counted and schedules == [1]
 
 
 @pytest.mark.parametrize("spec", SPMD_CODES, ids=IDS)

@@ -91,6 +91,9 @@ def test_traced_simulation_equals_reference():
                 for s in t.spans]
 
     assert spans(tr) == spans(rtr)
-    assert tr.metrics.as_dict() == rtr.metrics.as_dict()
+    # the port's metrics are the reference's, plus the plans it built
+    got = tr.metrics.as_dict()
+    assert set(got["counters"].pop("repair.plan.builds")) == {"family=DRC"}
+    assert got == rtr.metrics.as_dict()
     stage = [s.name for s in tr.spans if s.cat == "stage"]
     assert stage[:7] == list(obs.STAGE_NAMES)
