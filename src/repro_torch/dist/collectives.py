@@ -17,14 +17,16 @@ rack structure made explicit: ``pod`` is the rack axis (r racks) and
 
   - :func:`make_spmd_repair`, the *emulated mesh*: the node-major
     ``(n, alpha, sub)`` payload tensor on one device, row ``p*w + j``
-    standing for device ``(p, j)``.  NodeEncode for all n devices is one
-    batched kernel launch into a preallocated unit buffer (the ``node``
-    all-gather is a view of it); RelayerEncode reads the payload and the
-    pool in place and writes its units into the same buffer; the cross
-    ship and the decode's gather copy exactly the ``target_idx`` units
-    into the collector's decode input (one copy per run of consecutive
-    units, none when they already lie in order), whose cross-pod rows are
-    the Eq. (3) bytes;
+    standing for device ``(p, j)``.  NodeEncode computes only the coded
+    rows of the stacked matrices, in one batched kernel launch into a
+    preallocated unit buffer; a unit-vector row is the payload row it
+    selects and a zero row is held by none, so the ``node`` all-gather is
+    the payload and the buffer as they lie.  RelayerEncode reads both in
+    place and writes its units into the same buffer; the cross ship and
+    the decode's gather copy exactly the ``target_idx`` units into the
+    collector's decode input (one copy per run of consecutive units, none
+    when they already lie in order), whose cross-pod rows are the Eq. (3)
+    bytes;
   - :func:`make_mesh_repair`, the *process-group executor*: one rank per
     device of a 2-D ``DeviceMesh`` (``launch.mesh.make_repair_mesh``).
     Each rank runs NodeEncode on its own payload, all-gathers over its
@@ -268,21 +270,90 @@ def _producer(spec: SpmdRepairSpec, pod: int, row: int) -> tuple[int, int]:
     return pod * spec.w + (row - wnu) // spec.ru, spec.nu + (row - wnu) % spec.ru
 
 
-def _relayer_encode(x: torch.Tensor, y_pods: torch.Tensor, rel: np.ndarray,
-                    mats: np.ndarray, z: torch.Tensor) -> None:
+# kinds of NodeEncode row, as ``_classify_units`` gives them and the
+# ``repair.node_encode.units`` counter labels them
+_SKIPPED, _IN_PLACE, _COMPUTED = 0, 1, 2
+_UNIT_KINDS = ("skipped", "in_place", "computed")
+
+
+def _classify_units(node_mats: np.ndarray) -> np.ndarray:
+    """The kind of each row of ``node_mats`` (n, nu, alpha): ``_SKIPPED`` for
+    a zero row, ``_IN_PLACE`` for a unit vector (one coefficient, equal to
+    1: a copy of one payload row), ``_COMPUTED`` for any other.  A row's
+    coefficients sum to 1 just where it is a unit vector."""
+    return np.minimum(node_mats.sum(axis=-1, dtype=np.int64), _COMPUTED)
+
+
+class _Rows:
+    """A few 2-D tensors addressed as one stack of rows: row ``a`` of the
+    part that starts at ``start`` is row ``start + a``.  Parts start at
+    least one row past the end of the one before, so that no run of
+    consecutive rows (``_row_runs``) spans two parts; a slice lies in one
+    part and is a view of it."""
+
+    def __init__(self, parts: list[tuple[int, torch.Tensor]]):
+        self.parts = parts
+        last_start, last = parts[-1]
+        self.shape = (last_start + last.shape[0], last.shape[1])
+        self.dtype, self.device = last.dtype, last.device
+
+    def __getitem__(self, rows: slice) -> torch.Tensor:
+        for start, part in reversed(self.parts):
+            if rows.start >= start:
+                return part[rows.start - start:rows.stop - start]
+        raise IndexError(rows)
+
+
+def _relayer_pieces(mats: np.ndarray, addr: list[list[int]],
+                    gap: int) -> list[list[tuple[int, int, np.ndarray]]]:
+    """Each relayer's product as pieces ``(first row, rows, matrix)``, one
+    for the payload rows it reads (those below ``gap``) and one for the unit
+    buffer's (those above): its matrix's nonzero columns over them, moved
+    onto the span of rows they read.  ``mats`` is (relayers, ru, columns)
+    and ``addr`` the row each column reads; ``gap`` stands for a zero unit,
+    which none reads."""
+    pieces = []
+    for m, rows, nonzero in zip(mats, addr, mats.any(axis=1).tolist()):
+        reads: tuple[list, list] = ([], [])  # (row, column) below and above the gap
+        for col, (used, row) in enumerate(zip(nonzero, rows)):
+            if used and row != gap:
+                reads[row > gap].append((row, col))
+        mine = []
+        for part in reads:
+            if not part:
+                continue
+            at, cols = zip(*part)
+            first = min(at)
+            span = max(at) - first + 1
+            if at == tuple(range(first, first + span)):  # rows in order, once each
+                piece = (m[:, cols[0]:cols[-1] + 1] if cols[-1] - cols[0] + 1 == span
+                         else m[:, cols])
+            else:
+                piece = np.zeros((m.shape[0], span), np.uint8)
+                for row, col in part:  # a row read twice takes the sum
+                    piece[:, row - first] ^= m[:, col]
+            mine.append((first, span, np.ascontiguousarray(piece)))
+        pieces.append(mine)
+    return pieces
+
+
+def _relayer_encode(src: _Rows, pieces: list[list[tuple[int, int, np.ndarray]]],
+                    z: torch.Tensor) -> None:
     """RelayerEncode of every relayer into ``z`` (relayers, ru, sub).
 
-    Each relayer's input is [own payload ++ its pod's NodeEncode pool], two
-    tensors here: its matrix is split into its own-payload columns and its
-    pool columns, the two products read both in place, and the second is
-    XORed into the first (``spmd_ablation`` times this against gathering
-    the input once)."""
-    alpha, w = x.shape[1], x.shape[0] // y_pods.shape[0]
-    own = np.ascontiguousarray(mats[:, :, :alpha])
-    pool = np.ascontiguousarray(mats[:, :, alpha:])
-    for i, node in enumerate(rel.tolist()):
-        ops.gf_matmul(own[i], x[node], out=z[i])
-        z[i].bitwise_xor_(ops.gf_matmul(pool[i], y_pods[node // w]))
+    Each relayer's input is its own payload and the units of its pod's
+    NodeEncode pool it reads: payload rows, and the computed units in the
+    unit buffer.  Each of its pieces (``_relayer_pieces``) reads a span of
+    one of them in place, and the products are XORed into the first
+    (``spmd_ablation`` times this against gathering the input once)."""
+    for zi, mine in zip(z, pieces):
+        if not mine:
+            zi.zero_()
+        for j, (first, rows, m) in enumerate(mine):
+            if j == 0:
+                ops.gf_matmul(m, src[first:first + rows], out=zi)
+            else:
+                zi.bitwise_xor_(ops.gf_matmul(m, src[first:first + rows]))
 
 
 def _row_runs(pairs: Iterable[tuple[int, int]]) -> list[tuple[int, int, int]]:
@@ -297,18 +368,19 @@ def _row_runs(pairs: Iterable[tuple[int, int]]) -> list[tuple[int, int, int]]:
     return runs
 
 
-def _gather_rows(src: torch.Tensor, runs: list[tuple[int, int, int]],
-                 dst: torch.Tensor) -> None:
-    """``dst`` <- the rows of ``src`` that ``runs`` name: one copy per run of
-    consecutive rows (a copy moves bytes at the memory rate, where
-    ``index_select`` gathers byte by byte; ``src`` may lie on the host)."""
+def _gather_rows(src: Any, runs: list[tuple[int, int, int]], dst: torch.Tensor) -> None:
+    """``dst`` <- the rows of ``src`` (a tensor or ``_Rows``) that ``runs``
+    name: one copy per run of consecutive rows (a copy moves bytes at the
+    memory rate, where ``index_select`` gathers byte by byte; ``src`` may
+    lie on the host)."""
     for d, s_, length in runs:
         dst[d:d + length].copy_(src[s_:s_ + length])
 
 
-def _take_rows(src: torch.Tensor, runs: list[tuple[int, int, int]], rows: int) -> torch.Tensor:
-    """The ``rows`` rows that ``runs`` name, as a view of ``src`` where they
-    lie in order, else gathered into a new tensor."""
+def _take_rows(src: Any, runs: list[tuple[int, int, int]], rows: int) -> torch.Tensor:
+    """The ``rows`` rows of ``src`` (a tensor or ``_Rows``) that ``runs``
+    name, as a view of ``src`` where they lie in order, else gathered into a
+    new tensor."""
     if len(runs) == 1:
         _, s_, length = runs[0]
         return src[s_:s_ + length]
@@ -327,29 +399,79 @@ def make_spmd_repair(
     reconstructed payload; every other row is zero, as in the reference.
     ``out``, when given, is a contiguous (n, alpha, sub) uint8 tensor that
     is overwritten.  Each stage runs under its ``repro_torch.obs`` span,
-    and each call books the schedule's ``repair.bytes.*``.
+    and each call books the schedule's ``repair.bytes.*`` and its
+    NodeEncode rows by kind (``repair.node_encode.units``).
 
-    The units live in one buffer: the n nodes' NodeEncode units, node-major
-    (``(n, nu, sub)``, so pod q's gathered pool is rows ``q*w*nu`` onwards),
-    then the relayers' units.  No other payload-sized buffer is made: the
-    decode input holds only the ``target_idx`` units, or is a view of the
-    buffer where they lie in order.
+    NodeEncode computes only its coded rows (``_classify_units``): a zero
+    row is computed and held by none, and a unit-vector row is the payload
+    row it selects, which RelayerEncode and the decode input read where it
+    lies.  The coded rows are one batched launch over the nodes from the
+    first to the last that has any, ``R`` rows each (the most any node has,
+    zero-padded), into a unit buffer that also holds the relayers' units.
+    No other payload-sized buffer is made: the decode input holds only the
+    ``target_idx`` units, copied from the payload and the unit buffer one
+    run of consecutive rows at a time, or is a view where they lie in order.
     """
-    n, r, w, nu, ru, alpha = spec.n, spec.r, spec.w, spec.nu, spec.ru, spec.alpha
-    rel = spec.rel_idx.astype(np.int64)
+    n, w, nu, ru, alpha = spec.n, spec.w, spec.nu, spec.ru, spec.alpha
+    rel = spec.rel_idx.tolist()
+    kinds = _classify_units(spec.node_mats).tolist()  # (n, nu)
+    per_node = [row.count(_COMPUTED) for row in kinds]
+    R = max(per_node)
+    enc_nodes = [node for node, c in enumerate(per_node) if c]
+    lo, hi = (enc_nodes[0], enc_nodes[-1] + 1) if R else (0, 0)
+    g = hi - lo
+    # The rows the stages read: the payload's n*alpha rows, a gap row that
+    # stands for every zero unit, then from `base` the unit buffer: the
+    # computed units (node lo's first), then the relayers' units.
+    gap = n * alpha
+    base = gap + 1
+    unit_rows = g * R + len(rel) * ru
+    addr: list[int] = []  # the row each (node, NodeEncode row) is read from
+    counts = [0] * len(_UNIT_KINDS)
+    computed: list[tuple[int, int, int]] = []  # (node, its row, unit buffer row)
+    for node, (row_kinds, cols) in enumerate(
+            zip(kinds, spec.node_mats.argmax(axis=-1).tolist())):
+        row = (node - lo) * R
+        for local, (kind, col) in enumerate(zip(row_kinds, cols)):
+            counts[kind] += 1
+            if kind == _IN_PLACE:
+                addr.append(node * alpha + col)
+            elif kind == _COMPUTED:
+                computed.append((node, local, row))
+                addr.append(base + row)
+                row += 1
+            else:
+                addr.append(gap)
+    enc_mats = np.zeros((g * R, alpha), np.uint8)
+    if computed:
+        nodes, locals_, rows = zip(*computed)
+        enc_mats[list(rows)] = spec.node_mats[list(nodes), list(locals_)]
+    enc_mats = enc_mats.reshape(g, R, alpha)
     # Non-relayer rows of relayer_mats are zero (plan_to_spmd): only the
     # rel_idx rows are computed, and nothing reads the others.
-    relayer_mats = np.ascontiguousarray(spec.relayer_mats[rel])
-    rel_pos = {int(node): i for i, node in enumerate(rel)}
+    pieces = _relayer_pieces(
+        spec.relayer_mats[rel],
+        [[node * alpha + c for c in range(alpha)]
+         + addr[node // w * w * nu:(node // w + 1) * w * nu] for node in rel],
+        gap)
+    rel_pos = {node: i for i, node in enumerate(rel)}
 
-    def unit_row(pod: int, row: int) -> int:
-        node, local = _producer(spec, pod, row)
-        if local < nu:
-            return node * nu + local
-        return n * nu + rel_pos[node] * ru + local - nu
+    wnu = w * nu
+
+    def unit_addr(pod: int, row: int) -> int:
+        # the row of pod `pod`'s pool row `row` (the rows `_producer` names)
+        if row < wnu:
+            return addr[pod * wnu + row]
+        node, local = pod * w + (row - wnu) // ru, (row - wnu) % ru
+        return base + g * R + rel_pos[node] * ru + local
 
     pool2 = _pool2_sources(spec)
-    runs = _row_runs(enumerate(unit_row(*pool2[t]) for t in spec.target_idx))
+    target = [unit_addr(*pool2[t]) for t in spec.target_idx]
+    decode = spec.decode
+    if gap in target:  # a zero unit adds nothing to the decode
+        decode = np.ascontiguousarray(decode[:, np.asarray(target) != gap])
+        target = [a for a in target if a != gap]
+    runs = _row_runs(enumerate(target))
     permutes = sum(1 for q, dst, _ in spec.permute_steps() if q != dst)
     collector = spec.target_pod * w
 
@@ -362,26 +484,31 @@ def make_spmd_repair(
         dev, sub = x.device, x.shape[2]
         if obs.enabled():
             _record_schedule(spec, sub)
+            for label, count in zip(_UNIT_KINDS, counts):
+                obs.counter_add("repair.node_encode.units", count, kind=label)
         x = x.contiguous()
-        units = torch.empty((n * nu + len(rel) * ru, sub), dtype=torch.uint8, device=dev)
-        y = units[:n * nu].view(n, nu, sub)
+        parts = [(0, x.view(n * alpha, sub))]
+        if unit_rows:
+            units = torch.empty((unit_rows, sub), dtype=torch.uint8, device=dev)
+            parts.append((base, units))
+        src = _Rows(parts)
         with obs.span("repair.inner", cat="repair", units=spec.inner_units):
-            # NodeEncode on every device at once; the all_gather over
-            # `node` is the pod-major view of its output
-            ops.gf_matmul_batched(spec.node_mats, x, out=y)
+            # NodeEncode of the computed units on every device that has
+            # any; the all_gather over `node` is the rows each stage reads
+            if g:
+                ops.gf_matmul_batched(enc_mats, x[lo:hi], out=units[:g * R].view(g, R, sub))
             if ru:
-                _relayer_encode(x, y.view(r, w * nu, sub), rel, relayer_mats,
-                                units[n * nu:].view(len(rel), ru, sub))
+                _relayer_encode(src, pieces, units[g * R:].view(len(rel), ru, sub))
         with obs.span("repair.cross", cat="repair", units=spec.cross_units,
                       permutes=permutes):
             # each source pod's scheduled units and the target pod's own
             # land in the collector's decode input, in canonical order
-            target_in = _take_rows(units, runs, len(spec.target_idx))
+            target_in = _take_rows(src, runs, len(target))
         with obs.span("repair.decode", cat="repair", units=len(spec.target_idx)):
             out = torch.empty_like(x) if out is None else out
             out[:collector].zero_()
             out[collector + 1:].zero_()
-            ops.gf_matmul(spec.decode, target_in, out=out[collector])
+            ops.gf_matmul(decode, target_in, out=out[collector])
         return out
 
     return repair

@@ -166,7 +166,7 @@ def test_emulated_mesh_into_garbage_out_on_card(dev, spec):
     rng = np.random.default_rng(4)
     data = _rand(rng, code.k * code.alpha, 4099)
     stacked = torch.stack(code.encode(torch.from_numpy(data).to(dev)))
-    for failed in (0, code.n - 1):
+    for failed in range(code.n):
         sp = collectives.plan_to_spmd(code, code.repair_plan(failed))
         out = torch.from_numpy(_rand(rng, *stacked.shape) | 1).to(dev)
         before = gf_matmul_batched.launches

@@ -215,6 +215,37 @@ def test_spmd_repair_into_garbage_out_zeroes_every_other_row(spec):
         assert not np.delete(out.numpy(), row, axis=0).any()
 
 
+# NodeEncode rows per stripe by kind (computed / in place / skipped), and GF
+# calls per stripe: the NodeEncode launch if any row is computed, one per
+# place each relayer reads (its payload rows, the unit buffer), the decode
+NODE_ENCODE_UNITS = {("DRC", 9, 6, 3): (4, 6, 17), ("RS", 9, 6, 3): (0, 6, 3),
+                     ("DRC", 9, 5, 3): (0, 8, 10), ("MSR", 9, 6, 3): (0, 72, 9)}
+GF_CALLS = {("DRC", 9, 6, 3): 6, ("RS", 9, 6, 3): 1, ("DRC", 9, 5, 3): 3, ("MSR", 9, 6, 3): 1}
+
+
+@pytest.mark.parametrize("spec", SPMD_CODES, ids=IDS)
+def test_node_encode_computes_only_the_coded_units(spec):
+    port = make_code(*spec)
+    sub = 40
+    nodes = _codeword(r_make_code(*spec), sub, 6)
+    stacked = torch.from_numpy(np.stack(nodes))
+    rng = np.random.default_rng(7)
+    for failed in range(port.n):
+        for rotation in range(3):
+            sp = tcoll.plan_to_spmd(port, port.repair_plan(failed, rotation))
+            body = tcoll.make_spmd_repair(sp)
+            out = torch.from_numpy(rng.integers(1, 256, size=stacked.shape, dtype=np.uint8))
+            with obs.tracing("units") as tr:
+                body(stacked, out=out)
+            got = tuple(tr.counter_value("repair.node_encode.units", kind=kind)
+                        for kind in ("computed", "in_place", "skipped"))
+            assert got == NODE_ENCODE_UNITS[spec], (failed, rotation)
+            assert tr.counter_value("kernel.gf_matmul.calls") == GF_CALLS[spec], (failed, rotation)
+            row = sp.target_pod * sp.w
+            np.testing.assert_array_equal(out[row].numpy(), nodes[failed])
+            assert not np.delete(out.numpy(), row, axis=0).any()
+
+
 @pytest.mark.parametrize("spec", [("DRC", 9, 6, 3), ("DRC", 9, 5, 3), ("RS", 9, 6, 3)], ids=IDS)
 def test_spmd_ablation_variants_equal_the_shipped_executor(spec):
     from repro_torch.dist import spmd_ablation
@@ -229,6 +260,7 @@ def test_spmd_ablation_variants_equal_the_shipped_executor(spec):
                 got = tcoll.make_spmd_repair(sp)(nodes, out=torch.full_like(nodes, 0xA5))
             assert torch.equal(got, want), name
     assert tcoll._relayer_encode is not spmd_ablation.relayer_encode_gather
+    assert tcoll._classify_units is not spmd_ablation.classify_all_computed
 
 
 def test_row_runs_and_take_rows():
